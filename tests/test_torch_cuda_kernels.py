@@ -1,0 +1,95 @@
+"""K1 (fused joint forward) and K3 (alpha recursion) on the card against
+their plain PyTorch versions.  Skipped without CUDA; on a card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda
+
+Tolerances: K1 compares bf16-input joints whose float32 sums run in
+another order (atol 2e-3, rtol 1e-3); K3 compares float32 log-semiring
+scans grouped differently (atol 1e-3, rtol 1e-5 on NLLs of O(10^2-10^3)).
+"""
+
+import math
+
+import pytest
+import torch
+
+from rnnt_tpu_torch.ops.lattice_pallas import K3, alpha_forward, alpha_plain
+from rnnt_tpu_torch.ops.transducer import NEG
+from rnnt_tpu_torch.ops.transducer_pallas import (
+    K1, fused_joint_outputs, fused_joint_outputs_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, atol, rtol):
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= atol + rtol * want.abs()).all(), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 19, 7, 64, 48),        # one partial V chunk
+    (1, 5, 130, 100, 1000),    # H % 8 != 0: scalar h staging
+    (2, 9, 5, 36, 37),         # V % 8 != 0: W staged without cp.async
+    (3, 33, 65, 1024, 1024),   # the eval widths, ragged row tiles
+    (1, 7, 9, 2048, 256),      # H too wide for 64-row tiles: 32-row tiles
+])
+def test_k1_matches_plain(cuda, shape):
+    B, T, U1, H, V = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    enc = (torch.randn(B, T, H, generator=g) * 0.5).to(torch.bfloat16).to(cuda)
+    pred = (torch.randn(B, U1, H, generator=g) * 0.5).to(torch.bfloat16).to(cuda)
+    w = (torch.randn(H, V, generator=g) / math.sqrt(H)).to(torch.bfloat16).to(cuda)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda)
+    labels = torch.randint(0, V - 1, (B, U1), generator=g,
+                           dtype=torch.int32).to(cuda)
+    before = K1.launches
+    got = fused_joint_outputs(enc, pred, w, b, labels, V - 1)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    for x, y in zip(got, fused_joint_outputs_plain(enc, pred, w, b, labels, V - 1)):
+        _close(x, y, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 17), (2, 150, 31), (2, 64, 300),
+                                   (4, 504, 65)])
+def test_k3_matches_plain(cuda, shape):
+    B, T, U1 = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    lpb = torch.randn(B, T, U1, generator=g) - 1.5
+    lpl = torch.randn(B, T, U1, generator=g) - 1.5
+    u_lens = torch.randint(1, U1, (B,), generator=g, dtype=torch.int32)
+    t_lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lpl = torch.where(torch.arange(U1)[None, None, :] < u_lens[:, None, None],
+                      lpl, torch.full_like(lpl, NEG))
+    args = [x.to(cuda) for x in (lpb, lpl, t_lens, u_lens)]
+    before = K3.launches
+    nll, alpha = alpha_forward(*args)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    nll_p, alpha_p = alpha_plain(*args)
+    _close(nll, nll_p, atol=1e-3, rtol=1e-5)
+    live = alpha_p > NEG / 2
+    _close(alpha[live], alpha_p[live], atol=1e-3, rtol=1e-5)
+    assert (alpha[~live] <= NEG / 2).all()
+
+
+def test_wrappers_check_inputs(cuda):
+    x = torch.zeros((1, 4, 3), device=cuda)
+    lens = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        alpha_forward(x, x, lens.long(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        alpha_forward(x.transpose(1, 2).contiguous().transpose(1, 2), x, lens, lens)
+    bf = torch.zeros((1, 4, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_joint_outputs(bf.float(), bf, bf[0].T.contiguous(), x[0, 0],
+                            lens.view(1, 1), 0)
