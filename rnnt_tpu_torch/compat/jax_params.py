@@ -15,6 +15,10 @@ JAX keeps the prologue's and epilogue's running stats at
   ``config.yaml`` and ``params.npz``; the npz holds the pytree leaves
   under ``params/...`` and ``state/...`` ``/``-joined paths in JAX layout,
   so either package's arrays can be written into it.
+* ``opt_state_from_jax`` / ``opt_state_to_jax`` — the state of
+  ``optax.chain(clip_by_global_norm, adamw)`` (its count and the ``mu`` and
+  ``nu`` pytrees, numpy leaves in the params' structure) to the port's
+  ``OptState`` and back, so a run started in JAX continues in the port.
 """
 
 from __future__ import annotations
@@ -43,6 +47,65 @@ def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
     for k, v in items:
         out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten_tree(flat: dict):
+    """{"a/0/b": leaf} -> nested dicts, with lists where every key of a
+    level is an index (the inverse of ``flatten_tree`` up to empty
+    containers)."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def opt_state_from_jax(count, mu, nu, model: nn.Module, *, mini_step: int = 0,
+                       acc=None):
+    """The port's ``OptState`` for ``model`` from optax's adam count and
+    ``mu`` / ``nu`` pytrees (``acc``: MultiSteps' accumulated gradients)."""
+    from rnnt_tpu_torch.train.optim import OptState
+
+    names = dict(model.named_parameters())
+
+    def tensors(tree):
+        flat = flatten_tree(tree)
+        if set(k.replace("/", ".") for k in flat) != set(names):
+            raise KeyError("optimizer pytree does not match the model's "
+                           "parameters")
+        return {k.replace("/", "."): torch.tensor(np.asarray(v, np.float32),
+                                                  device=names[k.replace("/", ".")].device)
+                for k, v in flat.items()}
+
+    return OptState(int(np.asarray(count)), tensors(mu), tensors(nu),
+                    int(mini_step), tensors(acc) if acc is not None else {})
+
+
+def opt_state_to_jax(opt_state) -> dict:
+    """{"count", "mu", "nu"} (and "mini_step", "acc" when accumulating)
+    with numpy pytrees in the JAX params' structure."""
+    def tree(d):
+        return unflatten_tree({k.replace(".", "/"): v.detach().cpu().numpy()
+                               for k, v in d.items()})
+
+    out = {"count": np.int32(opt_state.count), "mu": tree(opt_state.mu),
+           "nu": tree(opt_state.nu)}
+    if opt_state.acc:
+        out["mini_step"] = np.int32(opt_state.mini_step)
+        out["acc"] = tree(opt_state.acc)
     return out
 
 

@@ -4,8 +4,8 @@ The port's own copy of ``rnnt_tpu/config/config.py``: the same dataclass
 schema, ``load_config``, Hydra-style ``apply_overrides``, and the spec
 builders, returning the port's spec classes.  It reads the same YAML files
 (``rnnt_tpu/config/configs/*.yaml``) as data and never edits them.  Fields
-that select paths not ported yet (pruned loss, LSTM predictor, training
-knobs) are kept so that every config parses and builds the same spec.
+that select paths not ported yet (LSTM predictor, augmentation, device
+staging, meshes) are kept so that every config parses and builds the same spec.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ output conv.  Activations are (B, T, C).
 A sub-block with ``additional_context > 0`` shortens its output by that
 many frames; the residual is cut to the surviving frames, as in the JAX
 package (at the flagship's 1024-frame bucket the encoder gives T' = 504,
-not 512).  Dropout is an identity in eval, the only mode of this slice.
+not 512).  In training, dropout follows each GELU of a Jasper block (the
+JAX package's uint16 threshold mask, ``dropout``) and batch norms use
+batch statistics, putting their new running statistics into ``new_state``.
 
 Module attribute names mirror the JAX params pytree, so
 ``compat/jax_params.py`` maps ``encoder/blocks/0/convs/1/w`` to
@@ -94,6 +96,23 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with the JAX package's uint16 threshold mask: keep
+    where 16 random bits < round((1 - rate) * 65536), rescale by that
+    quantized keep share, so E[y] = x exactly.  The bits come from
+    ``generator`` (on x's device); they cannot equal JAX's.  An identity
+    outside training, at rate 0, or without a generator."""
+    if not training or rate == 0.0 or generator is None:
+        return x
+    thresh = int(round((1.0 - rate) * 65536.0))
+    keep = thresh / 65536.0
+    bits = torch.randint(0, 65536, x.shape, generator=generator,
+                         device=x.device, dtype=torch.int32)
+    return torch.where(bits < thresh, x * (1.0 / keep),
+                       torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
+
+
 class JasperBlock(nn.Module):
     def __init__(self, b: JasperBlockSpec, generator: torch.Generator):
         super().__init__()
@@ -103,16 +122,19 @@ class JasperBlock(nn.Module):
             Norm(b.out_channels, b.norm_type) for _ in range(b.num_sub_blocks))
         self.residual_conv = Linear(b.in_channels, b.out_channels, generator)
         self.residual_norm = Norm(b.out_channels, b.norm_type)
+        self.rate = b.dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = self.residual_norm(self.residual_conv(x))
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None,
+                new_state: dict | None = None) -> torch.Tensor:
+        residual = self.residual_norm(self.residual_conv(x), training, new_state)
         last = len(self.convs) - 1
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            x = norm(conv(x))
+            x = norm(conv(x), training, new_state)
             if i == last:
                 # Lookahead shortens x; align the residual to the surviving frames.
                 x = x + residual[:, : x.shape[1], :]
-            x = _gelu(x)
+            x = dropout(_gelu(x), self.rate, training, generator)
         return x
 
 
@@ -131,9 +153,13 @@ class Encoder(nn.Module):
             "norm": Norm(spec.epilogue_features, spec.norm_type)})
         self.out = Linear(spec.epilogue_features, spec.output_features, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _gelu(self.prologue["norm"](self.prologue["conv"](x)))
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None,
+                new_state: dict | None = None) -> torch.Tensor:
+        x = _gelu(self.prologue["norm"](self.prologue["conv"](x), training,
+                                        new_state))
         for block in self.blocks:
-            x = block(x)
-        x = _gelu(self.epilogue["norm"](self.epilogue["conv"](x)))
+            x = block(x, training, generator, new_state)
+        x = _gelu(self.epilogue["norm"](self.epilogue["conv"](x), training,
+                                        new_state))
         return self.out(x)

@@ -3,8 +3,8 @@
 Port of ``rnnt_tpu/models/joint.py``: optional per-side projections
 (disabled when configured <= 0), broadcast add over the lattice, tanh, a
 linear layer to ``num_classes``; blank is the last class.  The factored
-``simple`` heads of the pruned loss are carried when present (the pruned
-loss itself is not ported yet).
+``simple`` heads of the pruned loss (ops/transducer_pruned.py) are
+carried when present.
 
 ``joint_apply`` materializes (B, T, U, V) logits and is for tests only;
 the eval loss runs the joint chunk-wise (ops/transducer.py) or fused in

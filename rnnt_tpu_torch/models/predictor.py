@@ -2,7 +2,8 @@
 
 Port of ``rnnt_tpu/models/predictor.py:38-143``: embedding -> LayerNorm ->
 CausalConv(k=3) -> GELU -> CausalConv(k=5) -> GELU -> Linear -> LayerNorm,
-stateless with a 7-token receptive field.  Dropout is an identity in eval.
+stateless with a 7-token receptive field.  In training, dropout (the
+encoder's uint16 threshold mask) follows each GELU.
 
 ``LSTMPredictorSpec`` is kept so that configs naming an LSTM predictor
 build the same spec as the JAX package; the LSTM module itself is not
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rnnt_tpu_torch.models.encoder import dropout
 from rnnt_tpu_torch.ops.causal_conv import CausalConv, ConvSpec, Linear
 from rnnt_tpu_torch.ops.norm import LayerNorm
 
@@ -70,10 +72,14 @@ class ConvPredictor(nn.Module):
         self.linear = Linear(spec.symbol_embedding_dim, spec.output_dim, generator)
         self.output_ln = LayerNorm(spec.output_dim)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        rate = self.spec.dropout
         x = self.input_ln(self.embedding[tokens.long()])
-        x = F.gelu(self.conv1(x), approximate="none")
-        x = F.gelu(self.conv2(x), approximate="none")
+        x = dropout(F.gelu(self.conv1(x), approximate="none"), rate, training,
+                    generator)
+        x = dropout(F.gelu(self.conv2(x), approximate="none"), rate, training,
+                    generator)
         return self.output_ln(self.linear(x))
 
 

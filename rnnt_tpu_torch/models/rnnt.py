@@ -2,7 +2,9 @@
 
 Port of ``rnnt_tpu/models/rnnt.py``.  ``RNNT`` holds the three modules
 under the JAX params' top-level names; ``rnnt_forward`` runs the predictor
-on blank-prepended targets and the encoder on features.
+on blank-prepended targets and the encoder on features, in eval or in
+training mode (dropout from an explicit generator, batch statistics), and
+returns the new batch-norm state as the JAX ``rnnt_forward`` does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from rnnt_tpu_torch.models.predictor import (
     LSTMPredictorSpec,
     make_predictor,
 )
+from rnnt_tpu_torch.ops.norm import Norm
 
 
 @dataclass(frozen=True)
@@ -54,6 +57,21 @@ class RNNT(nn.Module):
         if simple is None:
             simple = spec.loss_impl == "pruned"
         self.joint = Joint(spec.joint, generator, simple=simple)
+        for name, m in self.named_modules():
+            if isinstance(m, Norm):
+                m.state_key = name
+
+    def norm_state(self) -> dict:
+        """The batch-norm running statistics, by buffer name."""
+        return {k: v for k, v in self.named_buffers()}
+
+    @torch.no_grad()
+    def commit_norm_state(self, new_state: dict) -> None:
+        """Write new running statistics (from a training forward) into the
+        buffers."""
+        buffers = dict(self.named_buffers())
+        for k, v in new_state.items():
+            buffers[k].copy_(v)
 
 
 def rnnt_init(spec: RNNTSpec, seed: int = 0, device="cpu") -> RNNT:
@@ -64,8 +82,8 @@ def rnnt_init(spec: RNNTSpec, seed: int = 0, device="cpu") -> RNNT:
 
 
 def resolve_loss_impl(impl: str, device: torch.device) -> str:
-    """'auto' -> the hand-written kernels (K1 + K3) on CUDA, the plain
-    chunked path on the CPU."""
+    """'auto' -> the hand-written kernels (K1 + K3 forward, K2 + K4
+    backward) on CUDA, the plain chunked path on the CPU."""
     if impl == "auto":
         return "pallas" if torch.device(device).type == "cuda" else "chunked"
     return impl
@@ -78,8 +96,15 @@ def prepend_blank(targets: torch.Tensor, blank_idx: int) -> torch.Tensor:
     return torch.cat([col, targets], dim=1)
 
 
-def rnnt_forward(model: RNNT, features: torch.Tensor, targets: torch.Tensor):
-    """Encoder + predictor.  Returns (audio (B, T', H), text (B, U+1, H))."""
-    text = model.predictor(prepend_blank(targets, model.spec.blank_idx))
-    audio = model.encoder(features)
-    return audio, text
+def rnnt_forward(model: RNNT, features: torch.Tensor, targets: torch.Tensor,
+                 *, training: bool = False,
+                 generator: torch.Generator | None = None):
+    """Encoder + predictor.  Returns (audio (B, T', H), text (B, U+1, H),
+    new_state): the batch-norm running statistics after this forward (the
+    current ones outside training).  A generator of None turns dropout off,
+    as ``rng=None`` does in JAX."""
+    text = model.predictor(prepend_blank(targets, model.spec.blank_idx),
+                           training, generator)
+    new_state: dict = {}
+    audio = model.encoder(features, training, generator, new_state)
+    return audio, text, {**model.norm_state(), **new_state}

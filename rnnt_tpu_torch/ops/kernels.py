@@ -40,6 +40,14 @@ def nvcc_path() -> str:
     return found
 
 
+KERNELS: list["CudaKernel"] = []  # every kernel defined, in import order
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches so far} of every kernel defined."""
+    return {k.name: k.launches for k in KERNELS}
+
+
 class CudaKernel:
     """One csrc source, its C entry point and the launch count of its
     wrapper (the wrapper adds one per launch; callers reset it to 0)."""
@@ -54,6 +62,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._fn = None
+        KERNELS.append(self)
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())

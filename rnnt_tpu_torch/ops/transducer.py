@@ -1,7 +1,6 @@
-"""RNN-T (transducer) loss, forward only: the plain PyTorch reference.
+"""RNN-T (transducer) loss: the plain PyTorch reference, differentiable.
 
-Port of ``rnnt_tpu/ops/transducer.py`` for evaluation: blank is the last
-class, ``NEG = -1e30`` is a finite log-zero (never -inf: inf - inf is NaN),
+Port of ``rnnt_tpu/ops/transducer.py``: blank is the last class, ``NEG = -1e30`` is a finite log-zero (never -inf: inf - inf is NaN),
 and the log-sum-exp here is guarded so two log-zeros stay exactly NEG.
 
 * ``lattice_log_probs`` — (B, T, U+1, V) logits to per-cell blank and label
@@ -12,14 +11,20 @@ and the log-sum-exp here is guarded so two log-zeros stay exactly NEG.
   Hillis-Steele scan of affine maps.  This is also the plain version of
   the K3 kernel (ops/lattice_pallas.py).
 * ``joint_lattice_log_probs`` / ``transducer_loss`` — the chunked path:
-  the joint is evaluated T-chunk by T-chunk so only (B, T, U+1) log-probs
-  persist, then ``lattice_nll`` runs the DP.
-* ``lattice_nll`` — K3 for CUDA tensors, the plain alpha for CPU tensors.
+  the joint is evaluated T-chunk by T-chunk, each chunk under
+  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` remat), so
+  only (B, T, U+1) log-probs persist, then ``lattice_nll`` runs the DP.
+* ``transducer_loss_from_logits`` — the oracle over full logits.
+* ``clamp_grads`` — identity forward, the cotangent clamped backward.
+* ``lattice_nll`` — the differentiable lattice NLL (ops/lattice_pallas.py):
+  K3 forward and K4 backward for CUDA tensors, the plain alpha and beta for
+  CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 NEG = -1e30
 
@@ -71,13 +76,18 @@ def _shift_right(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_full((x.shape[0], 1), NEG), x[:, :-1]], dim=1)
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def transducer_alpha(lp_blank: torch.Tensor, lp_label: torch.Tensor) -> torch.Tensor:
     """alpha (B, T, U+1): alpha[t, u] = LSE(alpha[t-1, u] + lp_blank[t-1, u],
-    alpha[t, u-1] + lp_label[t, u-1]), alpha[0, 0] = 0."""
-    lp_blank = lp_blank.float()
-    lp_label = lp_label.float()
+    alpha[t, u-1] + lp_label[t, u-1]), alpha[0, 0] = 0; float32, or float64
+    for float64 inputs."""
+    lp_blank = _at_least_f32(lp_blank)
+    lp_label = _at_least_f32(lp_label)
     B, T, U1 = lp_blank.shape
-    c = torch.full((B, U1), NEG, dtype=torch.float32, device=lp_blank.device)
+    c = torch.full((B, U1), NEG, dtype=lp_blank.dtype, device=lp_blank.device)
     c[:, 0] = 0.0
     rows = []
     for t in range(T):
@@ -92,7 +102,7 @@ def final_nll(alphas, lp_blank, t_lens, u_lens) -> torch.Tensor:
     b_idx = torch.arange(alphas.shape[0], device=alphas.device)
     t_last = t_lens.long() - 1
     u = u_lens.long()
-    return -(alphas[b_idx, t_last, u] + lp_blank.float()[b_idx, t_last, u])
+    return -(alphas[b_idx, t_last, u] + _at_least_f32(lp_blank)[b_idx, t_last, u])
 
 
 def transducer_alpha_loss(lp_blank, lp_label, t_lens, u_lens) -> torch.Tensor:
@@ -102,21 +112,69 @@ def transducer_alpha_loss(lp_blank, lp_label, t_lens, u_lens) -> torch.Tensor:
 
 
 def lattice_nll(lp_blank, lp_label, t_lens, u_lens) -> torch.Tensor:
-    """Per-sample NLL: the K3 kernel for CUDA tensors, the plain alpha for
-    CPU tensors."""
-    from rnnt_tpu_torch.ops.lattice_pallas import transducer_alpha_loss_fast
+    """Per-sample NLL, differentiable in the log-probs: K3 forward and K4
+    backward for CUDA tensors, the plain alpha and beta for CPU tensors."""
+    from rnnt_tpu_torch.ops.lattice_pallas import LatticeNLL
 
-    return transducer_alpha_loss_fast(
-        lp_blank.contiguous(), lp_label.contiguous(),
+    return LatticeNLL.apply(
+        lp_blank.float().contiguous(), lp_label.float().contiguous(),
         t_lens.to(torch.int32).contiguous(), u_lens.to(torch.int32).contiguous())
+
+
+class _ClampGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, clamp):
+        ctx.clamp = clamp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.clamp, ctx.clamp), None
+
+
+def clamp_grads(x: torch.Tensor, clamp: float) -> torch.Tensor:
+    """Identity forward; backward clamps the cotangent to [-clamp, clamp]
+    (torchaudio's rnnt_loss ``clamp``)."""
+    return _ClampGrads.apply(x, clamp)
+
+
+def transducer_loss_from_logits(logits, targets, t_lens, u_lens, blank: int,
+                                reduction: str = "mean",
+                                grad_clamp: float = -1.0) -> torch.Tensor:
+    """Loss from full (B, T, U+1, V) logits — the correctness oracle."""
+    if grad_clamp > 0:
+        logits = clamp_grads(logits, grad_clamp)
+    lp_blank, lp_label = lattice_log_probs(logits, targets, u_lens, blank)
+    return reduce_losses(lattice_nll(lp_blank, lp_label, t_lens, u_lens),
+                         reduction)
+
+
+def _joint_chunk_log_probs(w, b, enc_chunk, text, tgt, u_mask, blank: int,
+                           grad_clamp: float):
+    """Joint + log-softmax + blank/label gather for a chunk of frames:
+    (B, Tc, U+1) f32 blank and label log-probs."""
+    h = torch.tanh(enc_chunk[:, :, None, :] + text[:, None, :, :])
+    logits = torch.matmul(h.float(), w.to(h.dtype).float()) + b.float()
+    if grad_clamp > 0:
+        logits = clamp_grads(logits, grad_clamp)
+    denom = torch.logsumexp(logits, dim=-1)
+    B, Tc, U1, _ = logits.shape
+    label = torch.gather(logits, 3,
+                         tgt[:, None, :, None].expand(B, Tc, U1, 1))[..., 0]
+    return (logits[..., blank] - denom,
+            torch.where(u_mask[:, None, :], label - denom,
+                        torch.full_like(denom, NEG)))
 
 
 def joint_lattice_log_probs(joint, audio: torch.Tensor, text: torch.Tensor,
                             targets: torch.Tensor, u_lens: torch.Tensor,
-                            blank: int, chunk_size: int = 32):
+                            blank: int, chunk_size: int = 32,
+                            grad_clamp: float = -1.0):
     """(lp_blank, lp_label), both (B, T, U+1) f32, from the joint evaluated
     ``chunk_size`` frames at a time.  audio (B, T, H) and text (B, U+1, H)
-    are the encoder and predictor outputs; targets (B, U) label ids."""
+    are the encoder and predictor outputs; targets (B, U) label ids.  When
+    autograd records, each chunk runs under ``torch.utils.checkpoint`` so
+    its (B, chunk, U+1, V) logits are recomputed in backward, not kept."""
     from rnnt_tpu_torch.models.joint import project_sides
 
     audio, text = project_sides(joint, audio, text)
@@ -124,18 +182,18 @@ def joint_lattice_log_probs(joint, audio: torch.Tensor, text: torch.Tensor,
     U1 = text.shape[1]
     tgt = torch.cat([targets, targets.new_zeros((B, 1))], dim=1).long()
     u_mask = torch.arange(U1, device=audio.device)[None, :] < u_lens[:, None]
+    remat = torch.is_grad_enabled()
     lpb, lpl = [], []
     for t0 in range(0, T, chunk_size):
-        h = torch.tanh(audio[:, t0:t0 + chunk_size, None, :] + text[:, None, :, :])
-        logits = (torch.matmul(h.float(), joint.out.w.to(h.dtype).float())
-                  + joint.out.b.float())
-        denom = torch.logsumexp(logits, dim=-1)
-        Tc = logits.shape[1]
-        lpb.append(logits[..., blank] - denom)
-        label = torch.gather(logits, 3,
-                             tgt[:, None, :, None].expand(B, Tc, U1, 1))[..., 0]
-        lpl.append(torch.where(u_mask[:, None, :], label - denom,
-                               torch.full_like(denom, NEG)))
+        args = (joint.out.w, joint.out.b, audio[:, t0:t0 + chunk_size], text,
+                tgt, u_mask, blank, grad_clamp)
+        if remat:
+            b_c, l_c = torch.utils.checkpoint.checkpoint(
+                _joint_chunk_log_probs, *args, use_reentrant=False)
+        else:
+            b_c, l_c = _joint_chunk_log_probs(*args)
+        lpb.append(b_c)
+        lpl.append(l_c)
     return torch.cat(lpb, dim=1), torch.cat(lpl, dim=1)
 
 
@@ -148,9 +206,10 @@ def reduce_losses(losses: torch.Tensor, reduction: str) -> torch.Tensor:
 
 
 def transducer_loss(joint, audio, text, targets, t_lens, u_lens, blank: int,
-                    *, chunk_size: int = 32, reduction: str = "mean"):
-    """Chunked joint + transducer NLL (forward only)."""
+                    *, chunk_size: int = 32, reduction: str = "mean",
+                    grad_clamp: float = -1.0):
+    """Chunked joint + transducer NLL."""
     lp_blank, lp_label = joint_lattice_log_probs(
-        joint, audio, text, targets, u_lens, blank, chunk_size)
+        joint, audio, text, targets, u_lens, blank, chunk_size, grad_clamp)
     return reduce_losses(lattice_nll(lp_blank, lp_label, t_lens, u_lens),
                          reduction)

@@ -1,15 +1,27 @@
-"""Eval forward and the exact eval loss over raw-audio batches.
+"""The train step, the eval forward and the loss over raw-audio batches.
 
-Port of the evaluation half of ``rnnt_tpu/train/step.py``: wire audio is
-decoded and featurized on the device, features are cast to the compute
-dtype (bf16 or fp32), the encoder runs, and the loss dispatches on
-``loss_impl``: ``pallas`` is K1 + K3 (ops/transducer_pallas.py), ``chunked``
-the chunked joint + the alpha recursion (ops/transducer.py), ``auto`` the
-first on CUDA and the second on the CPU.  The training step belongs to the
-next slice.
+Port of ``rnnt_tpu/train/step.py``: wire audio is decoded and featurized on
+the device, features are cast to the compute dtype (bf16 or fp32), the
+encoder and predictor run (in training with dropout from an explicit
+generator and batch-norm batch statistics), and the loss dispatches on
+``loss_impl``:
+
+* ``pallas`` — K1 + K3 forward, K2 + K4 backward (ops/transducer_pallas.py);
+* ``chunked`` — the chunked joint under checkpoint + the lattice DP
+  (ops/transducer.py);
+* ``auto`` — the first on CUDA, the second on the CPU;
+* ``pruned`` / ``pruned_warmup`` — ops/transducer_pruned.py.
+
+``make_train_step`` returns ``step(state, batch, generator) -> (state,
+metrics)``: loss, gradient, global and per-submodel gradient norms (before
+the clip), the optimizer update and the new batch-norm statistics.  Spec
+augmentation belongs to slice 3 and raises here; data augmentation raises
+in ``train.loop.train``.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -20,6 +32,14 @@ from rnnt_tpu_torch.models.rnnt import RNNT, RNNTSpec, resolve_loss_impl, rnnt_f
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec, make_featurizer
 from rnnt_tpu_torch.ops.transducer import transducer_loss
 from rnnt_tpu_torch.ops.transducer_pallas import transducer_loss_pallas
+from rnnt_tpu_torch.ops.transducer_pruned import (
+    pruned_transducer_loss,
+    pruned_warmup_loss,
+)
+from rnnt_tpu_torch.train.optim import OptState
+
+LOSS_IMPLS = ("auto", "pallas", "chunked", "pruned", "pruned_warmup")
+SUBMODELS = ("encoder", "predictor", "joint")
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -70,26 +90,89 @@ def make_eval_forward(spec: RNNTSpec, fspec: FeaturizerSpec,
     return forward
 
 
-def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16"):
-    """``loss_fn(model, batch) -> mean exact transducer NLL`` (eval mode).
-
-    ``loss_impl`` auto, pallas or chunked; the pruned losses are not
-    ported yet and raise."""
-    if spec.loss_impl not in ("auto", "pallas", "chunked"):
+def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
+                 spec_augment: bool = False):
+    """``loss_fn(model, batch, *, training=False, generator=None,
+    new_state=None) -> mean loss``; in training the new batch-norm
+    statistics go into ``new_state`` when a dict is given."""
+    if spec.loss_impl not in LOSS_IMPLS:
+        raise ValueError(f"unknown loss_impl {spec.loss_impl!r}")
+    if spec_augment:
         raise NotImplementedError(
-            f"loss_impl {spec.loss_impl!r} is not ported to rnnt_tpu_torch yet")
+            "training.spec_augment is not ported to rnnt_tpu_torch yet: slice 3")
     featurize = make_featurizer(fspec)
     dtype = compute_dtype(precision)
 
-    def loss_fn(model: RNNT, batch: dict) -> torch.Tensor:
+    def loss_fn(model: RNNT, batch: dict, *, training: bool = False,
+                generator: torch.Generator | None = None,
+                new_state: dict | None = None) -> torch.Tensor:
         feats = featurize(decode_wire_audio(batch["audio"])).to(dtype)
         feat_lens = feature_lens_from_samples(batch["audio_lens"], fspec)
-        audio, text = rnnt_forward(model, feats, batch["targets"])
+        audio, text, state = rnnt_forward(model, feats, batch["targets"],
+                                          training=training, generator=generator)
+        if new_state is not None:
+            new_state.update(state)
         t_lens = encoder_out_len(feat_lens, spec.encoder)
         args = (model.joint, audio, text, batch["targets"], t_lens,
                 batch["target_lens"], spec.blank_idx)
+        if spec.loss_impl == "pruned_warmup":
+            return pruned_warmup_loss(
+                *args, simple_scale=spec.pruned_simple_scale,
+                chunk_size=spec.loss_chunk_size, grad_clamp=spec.grad_clamp)
+        if spec.loss_impl == "pruned":
+            return pruned_transducer_loss(
+                *args, band=spec.pruned_band,
+                simple_scale=spec.pruned_simple_scale,
+                pruned_scale=spec.pruned_scale, grad_clamp=spec.grad_clamp)
         if resolve_loss_impl(spec.loss_impl, audio.device) == "pallas":
-            return transducer_loss_pallas(*args)
-        return transducer_loss(*args, chunk_size=spec.loss_chunk_size)
+            return transducer_loss_pallas(*args, grad_clamp=spec.grad_clamp)
+        return transducer_loss(*args, chunk_size=spec.loss_chunk_size,
+                               grad_clamp=spec.grad_clamp)
 
     return loss_fn
+
+
+@dataclass
+class TrainState:
+    """The model (parameters and batch-norm statistics), the optimizer
+    state and the number of steps taken."""
+    model: RNNT
+    opt_state: OptState
+    step: int = 0
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, float32 (optax's
+    ``global_norm``)."""
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
+                    precision: str = "bf16", spec_augment: bool = False):
+    """``step(state, batch, generator) -> (state, metrics)``.  ``batch``
+    holds tensors on the model's device; ``generator`` (on that device, or
+    None for no dropout) draws the dropout bits.  Metrics are 0-d tensors:
+    loss, grad_norm (before the clip), total_target_len and
+    grad_norm/{encoder,predictor,joint}."""
+    loss_fn = make_loss_fn(spec, fspec, precision, spec_augment=spec_augment)
+
+    def step(state: TrainState, batch: dict, generator):
+        model = state.model
+        names, params = zip(*model.named_parameters())
+        new_norm: dict = {}
+        loss = loss_fn(model, batch, training=True, generator=generator,
+                       new_state=new_norm)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g.float()
+                 for p, g in zip(params, grads)]
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+                   "total_target_len": batch["target_lens"].sum()}
+        for sub in SUBMODELS:
+            metrics[f"grad_norm/{sub}"] = global_norm(
+                [g for n, g in zip(names, grads) if n.split(".")[0] == sub])
+        opt_state = optimizer.update(dict(zip(names, params)),
+                                     dict(zip(names, grads)), state.opt_state)
+        model.commit_norm_state(new_norm)
+        return TrainState(model, opt_state, state.step + 1), metrics
+
+    return step

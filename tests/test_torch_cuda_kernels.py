@@ -1,11 +1,18 @@
-"""K1 (fused joint forward) and K3 (alpha recursion) on the card against
-their plain PyTorch versions.  Skipped without CUDA; on a card:
+"""K1 and K2 (fused joint forward and backward) and K3 and K4 (alpha and
+beta recursions) on the card against their plain PyTorch versions.
+Skipped without CUDA; on a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda
 
 Tolerances: K1 compares bf16-input joints whose float32 sums run in
 another order (atol 2e-3, rtol 1e-3); K3 compares float32 log-semiring
 scans grouped differently (atol 1e-3, rtol 1e-5 on NLLs of O(10^2-10^3)).
+K2: each gradient within 5e-3 relative L2 error — dl is rounded to bf16 in
+both versions, but the logits it comes from differ in their last float32
+bits, so a few dl values round to the neighbouring bf16 (2^-8 relative),
+and fp32 atomics sum in a varying order.  K4: the gradients are
+exp(alpha + lp + beta - ll) with exponents summed from O(10^2-10^3)
+log-probs in another order, so atol 1e-4, rtol 3e-3.
 """
 
 import math
@@ -13,10 +20,12 @@ import math
 import pytest
 import torch
 
-from rnnt_tpu_torch.ops.lattice_pallas import K3, alpha_forward, alpha_plain
+from rnnt_tpu_torch.ops.lattice_pallas import (
+    K3, K4, alpha_forward, alpha_plain, beta_backward, beta_plain)
 from rnnt_tpu_torch.ops.transducer import NEG
 from rnnt_tpu_torch.ops.transducer_pallas import (
-    K1, fused_joint_outputs, fused_joint_outputs_plain)
+    K1, K2, fused_joint_backward, fused_joint_bwd_plain, fused_joint_outputs,
+    fused_joint_outputs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +89,70 @@ def test_k3_matches_plain(cuda, shape):
     live = alpha_p > NEG / 2
     _close(alpha[live], alpha_p[live], atol=1e-3, rtol=1e-5)
     assert (alpha[~live] <= NEG / 2).all()
+
+
+def _joint_case(shape, cuda, seed):
+    B, T, U1, H, V = shape
+    g = torch.Generator().manual_seed(seed)
+    enc = (torch.randn(B, T, H, generator=g) * 0.5).to(torch.bfloat16).to(cuda)
+    pred = (torch.randn(B, U1, H, generator=g) * 0.5).to(torch.bfloat16).to(cuda)
+    w = (torch.randn(H, V, generator=g) / math.sqrt(H)).to(torch.bfloat16).to(cuda)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda)
+    labels = torch.randint(0, V - 1, (B, U1), generator=g,
+                           dtype=torch.int32).to(cuda)
+    return [enc, pred, w, b, labels, V - 1]
+
+
+def _rel_l2(got, want):
+    assert torch.isfinite(got).all()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("shape,clamp", [
+    ((2, 19, 7, 64, 48), -1.0),       # one partial V chunk
+    ((1, 5, 13, 100, 1000), -1.0),    # H % 8 != 0: scalar h loads
+    ((2, 9, 5, 36, 37), 0.05),        # V % 8 != 0, clamp on
+    ((3, 33, 65, 1024, 1024), -1.0),  # the eval widths, ragged patches
+    ((128, 16, 16, 1024, 1024), 0.01),  # the banded patches, clamp on
+])
+def test_k2_matches_plain(cuda, shape, clamp):
+    B, T, U1, H, V = shape
+    args = _joint_case(shape, cuda, sum(shape))
+    lse = fused_joint_outputs_plain(*args)[0]
+    g = torch.Generator().manual_seed(1)
+    g_blank, g_label = (torch.randn(B, T, U1, generator=g).to(cuda) * 0.3
+                        for _ in range(2))
+    g_lse = -(g_blank + g_label)
+    before = K2.launches
+    got = fused_joint_backward(*args, lse, g_blank, g_label, g_lse, clamp)
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    want = fused_joint_bwd_plain(*args, lse, g_blank, g_label, g_lse, clamp)
+    for name, x, y in zip(("denc", "dpred", "dW", "db"), got, want):
+        assert _rel_l2(x, y) < 5e-3, (name, _rel_l2(x, y))
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 17), (2, 150, 31), (2, 64, 300),
+                                   (4, 504, 65)])
+def test_k4_matches_plain(cuda, shape):
+    B, T, U1 = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    lpb = torch.randn(B, T, U1, generator=g) - 1.5
+    lpl = torch.randn(B, T, U1, generator=g) - 1.5
+    u_lens = torch.randint(0, U1, (B,), generator=g, dtype=torch.int32)
+    t_lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lpl = torch.where(torch.arange(U1)[None, None, :] < u_lens[:, None, None],
+                      lpl, torch.full_like(lpl, NEG))
+    cot = torch.randn(B, generator=g)
+    args = [x.to(cuda) for x in (lpb, lpl, t_lens, u_lens)]
+    nll, alpha = alpha_plain(*args)
+    before = K4.launches
+    got = beta_backward(*args[:2], alpha, *args[2:], nll, cot.to(cuda))
+    torch.cuda.synchronize()
+    assert K4.launches == before + 1
+    want = beta_plain(*args[:2], alpha, *args[2:], nll, cot.to(cuda))
+    for x, y in zip(got, want):
+        _close(x, y, atol=1e-4, rtol=3e-3)
 
 
 def test_wrappers_check_inputs(cuda):

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from rnnt_tpu_torch.cli import eval as cli_eval
+from rnnt_tpu_torch.cli import train as cli_train
 from rnnt_tpu_torch.config.config import apply_overrides, load_config, resolve_config
-from rnnt_tpu_torch.train.loop import evaluate
+from rnnt_tpu_torch.train.loop import evaluate, train
 from rnnt_tpu_torch.utils import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -68,13 +69,35 @@ def test_evaluate_refuses_missing_cuda(no_cuda, tmp_path):
     assert evaluate(cfg, model, device="cpu", batches=[])["utterances"] == 0
 
 
+def test_cli_train_refuses_missing_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_train.main(["--config", "tiny_conv", "--output-base", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_train.main(["--config", "tiny_conv", "--device", "cuda",
+                        "--output-base", str(tmp_path)])
+    assert not any(tmp_path.iterdir())  # refused before writing a run
+
+
+def test_train_refuses_missing_cuda(no_cuda, tmp_path):
+    cfg = load_config(resolve_config("tiny_conv"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, output_base=tmp_path, max_steps=1)
+    assert not any(tmp_path.iterdir())
+
+
 def test_kernels_refuse_other_devices():
     """Wrappers take the plain path only for CPU tensors."""
-    from rnnt_tpu_torch.ops.lattice_pallas import alpha_forward
-    from rnnt_tpu_torch.ops.transducer_pallas import fused_joint_outputs
+    from rnnt_tpu_torch.ops.lattice_pallas import alpha_forward, beta_backward
+    from rnnt_tpu_torch.ops.transducer_pallas import (
+        fused_joint_backward, fused_joint_outputs)
 
     meta = torch.empty((1, 2, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         alpha_forward(meta, meta, meta, meta)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         fused_joint_outputs(meta, meta, meta, meta, meta, 0)
+    with pytest.raises(ValueError, match="K4 runs on CUDA or the CPU"):
+        beta_backward(meta, meta, meta, meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="K2 runs on CUDA or the CPU"):
+        fused_joint_backward(meta, meta, meta, meta, meta, 0, meta, meta, meta,
+                             meta)
