@@ -10,24 +10,38 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
 3. kernel phase: each kernel against its plain PyTorch version on the card
    at the main paths' shapes — K1 and K2 at the eval shape and at the
    banded patches of the pruned loss (K2 with and without the gradient
-   clamp), K3 and K4 at the eval shape and at a long-label shape — with the tolerances stated below, timed with
-   CUDA events (median after warm-up) beside the least time the card could
-   take;
+   clamp), K3 and K4 at the eval shape and at a long-label shape, K5 at the
+   four calls one flagship ``device_augment_full`` makes (recorded from a
+   call on a full-width batch: chorus, resample, trim, time-stretch frames)
+   and at edge cases — with the tolerances stated below, timed with CUDA
+   events (median after warm-up) beside the least time the card could take
+   and, for K5, one ``torch.gather`` call computing the same function;
+3b. augmentation phase (slice 3): ``device_augment_full`` on one
+   full-width batch from a fixed generator, through K5 and with K5's plain
+   version in its place: identical audio and lens, lens in (0, L], zero
+   past the lens, finite; ms per call and K5 launches per call (4);
 4. path phase (slice 1): the full-width ``base_convjs`` model (random
    weights from a seed, ``training.loss_impl=auto``, synthetic 10 s
    utterances, an in-code 1023-piece vocabulary) through
    ``rnnt_tpu_torch.cli.eval.main`` and ``rnnt_tpu_torch.train.loop.evaluate``;
    the kernels' launch counts are set to 0 before and read after; one
    batch's NLL is recomputed through the plain path and must agree;
-5. train phase (slice 2): ``rnnt_tpu_torch.cli.train.main`` on full-width
-   ``base_convjs`` (flagship pruned loss, 2 warmup steps, augmentation off,
-   batch 4 of synthetic 10 s utterances): steps 1-2 (warmup loss), then a
-   resume for steps 3-4 (banded loss), then 2 steps of the exact loss
-   (``loss_impl=auto``); K1-K4 must launch in every step (the loop logs
+5. train phase (slices 2 and 3): ``rnnt_tpu_torch.cli.train.main`` on
+   full-width ``base_convjs`` with the flagship's own data settings
+   (``augment: true, augment_device: full, staging: auto``: the corpus
+   cached on the card, the whole augmentation recipe in the step; flagship
+   pruned loss with 2 warmup steps; batch 4 of synthetic 10 s utterances):
+   steps 1-2 (warmup loss), then a resume for steps 3-4 (banded loss), then
+   2 steps of the exact loss (``loss_impl=auto``); then 2 exact steps with
+   augmentation off, and 2 steps with the host recipe in 2 worker threads
+   and SpecAugment (``augment_device=false, num_workers=2,
+   spec_augment=true``: streamed); K1-K4 must launch in every step and K5
+   4 times in each device-augmented step and never otherwise (the loop logs
    each step's launches to metrics.jsonl; counts also set to 0 before each
    run and read after); each step's loss, gradient norm, seconds and
-   audio-s/s are printed and must be finite; ``cli.eval`` reads the
-   trained checkpoint;
+   audio-s/s are printed and must be finite; the cache's line must be
+   printed where the corpus is cached; ``cli.eval`` reads the trained
+   checkpoint;
 6. gradient check: one full-width bf16 batch, dropout off, loss and every
    parameter gradient through the kernels against plain references, for
    the exact loss and the banded pruned loss: the same loss functions with
@@ -38,9 +52,10 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    line.
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
-the path phase) and of three banded train steps (after the gradient
-check): device time by kernel, the card's busy and idle share, and
-``DIR/eval_trace.json.gz`` and ``DIR/train_trace.json.gz``.
+the path phase) and of three banded train steps without and with device
+augmentation (after the gradient check): device time by kernel, the card's
+busy and idle share, and ``DIR/eval_trace.json.gz``,
+``DIR/train_trace.json.gz`` and ``DIR/train_aug_trace.json.gz``.
 
 Every check raises on failure, so a failed phase exits nonzero before the
 last line.  float32 matmuls and cuDNN convs run without TF32 here (both
@@ -52,6 +67,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gzip
+import io
 import json
 import math
 import shutil
@@ -138,6 +154,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time per call of ``fn``'s kernels (torch.profiler), after
+    a warm-up call: for kernels so short that CUDA events around one call
+    time its launch from Python, not the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    return sum(t.end - t.start for t in spans) / reps / 1e3
 
 
 def sync(device) -> None:
@@ -350,6 +385,178 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
     return out
 
 
+# ------------------------- K5 and the augmentation -------------------------
+
+K5_LENS_FRACTION = (1.0, 0.93, 0.8, 0.65)   # the batch's lens, of L
+
+
+def augment_batch(L: int, device, seed: int = 0):
+    """(audio (4, L) float32, lens (4,) int32) on ``device``: noise with a
+    few tones, zero past the lens."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.tensor([int(L * f) for f in K5_LENS_FRACTION], dtype=torch.int32)
+    t = torch.arange(L, dtype=torch.float32) / 16000.0
+    audio = 0.05 * torch.randn(len(lens), L, generator=g)
+    for f in (220.0, 1330.0, 3100.0):
+        audio += 0.05 * torch.sin(2 * math.pi * f * t)
+    audio = torch.where(torch.arange(L)[None, :] < lens[:, None], audio, 0.0)
+    return audio.to(device), lens.to(device)
+
+
+@contextlib.contextmanager
+def k5_calls(record: list | None = None, plain: bool = False):
+    """Inside: the device augmentation's window gathers are recorded as
+    (name, x, starts, width) in ``record`` and/or run on K5's plain
+    version."""
+    from rnnt_tpu_torch.data import augment_device as ad
+    from rnnt_tpu_torch.ops.window_gather import gather_windows_plain
+
+    names = iter(("time-stretch frames", "resample", "trim", "chorus"))
+    inner = gather_windows_plain if plain else ad.gather_windows
+    saved = ad.gather_windows
+
+    def call(x, starts, width):
+        if record is not None:
+            record.append((next(names), x.clone(), starts.clone(), width))
+        return inner(x, starts, width)
+
+    ad.gather_windows = call
+    try:
+        yield
+    finally:
+        ad.gather_windows = saved
+
+
+def k5_bound(x, starts, width) -> tuple[float, str]:
+    """(ms, "bytes"): x and the starts read once and the output written
+    once at the card's memory rate; K5 does no arithmetic."""
+    B, L = x.shape
+    N = starts.shape[1]
+    nbytes = 4 * B * L + 4 * B * N + 4 * B * N * width
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def k5_edge_cases(device):
+    """(name, x, starts, width): negative starts, starts >= L, windows past
+    L, N not a multiple of 8, a one-sample row."""
+    g = torch.Generator().manual_seed(5)
+    cases = []
+    for name, B, L, N, width, lo, hi in (
+            ("clipped starts", 3, 5000, 37, 256, -400, 5400),
+            ("past L", 2, 3000, 13, 512, 2600, 3000),
+            ("N % 8 != 0", 4, 20000, 1001, 128, 0, 20000),
+            ("one-sample row", 2, 1, 5, 128, -3, 4)):
+        x = torch.randn(B, L, generator=g).to(device)
+        starts = torch.randint(lo, hi, (B, N), generator=g, dtype=torch.int32).to(device)
+        cases.append((name, x, starts, width))
+    return cases
+
+
+def k5_phase(device, L: int, reps: int = 50, timer=None) -> dict:
+    """K5 against its plain version (bit-equal) at the four calls one
+    flagship ``device_augment_full`` makes and at edge cases; times of the
+    flagship calls (K5, plain, and one ``torch.gather`` on the zero-padded
+    row with a prebuilt (B, N * width) index, which the port never calls)
+    and their bound.  ``ms``, ``plain_ms`` and ``library_ms`` are device
+    time (``device_ms``; ``timer`` replaces it); ``event_ms`` is CUDA
+    events around one call, the Python launch included.  The entry's
+    headline numbers are sums over the four calls: one device-augmented
+    step's worth."""
+    timer = timer or device_ms
+    import torch.nn.functional as F
+
+    from rnnt_tpu_torch.data.augment_device import device_augment_full
+    from rnnt_tpu_torch.ops.window_gather import gather_windows, gather_windows_plain
+
+    audio, lens = augment_batch(L, device)
+    calls: list = []
+    with k5_calls(record=calls, plain=True):
+        device_augment_full(torch.Generator(device=device).manual_seed(0), audio, lens)
+    if len(calls) != 4:
+        raise AssertionError(f"device_augment_full made {len(calls)} window gathers, not 4")
+    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               event_ms=0.0, bound_by="bytes", cases=[])
+    cases = [(c, True) for c in calls] + [(c, False) for c in k5_edge_cases(device)]
+    for (name, x, starts, width), timed in cases:
+        got = gather_windows(x, starts, width)
+        want = gather_windows_plain(x, starts, width)
+        sync(device)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"K5 {name}: not bit-equal to its plain version "
+                                 f"(max abs err {float((got - want).abs().max()):.3e})")
+        B, Lx = x.shape
+        shape = f"B={B} L={Lx} N={starts.shape[1]} width={width}"
+        if not timed:
+            log(f"K5 {name} ok ({shape}): bit-equal to plain")
+            continue
+        xp = F.pad(x, (0, width))
+        idx = (starts.long().clamp(0, Lx - 1)[:, :, None]
+               + torch.arange(width, device=x.device)).reshape(B, -1)
+        m = dict(name=name, shape=shape,
+                 ms=timer(lambda: gather_windows(x, starts, width), reps),
+                 plain_ms=timer(lambda: gather_windows_plain(x, starts, width), reps),
+                 library_ms=timer(lambda: torch.gather(xp, 1, idx), reps),
+                 event_ms=cuda_ms(lambda: gather_windows(x, starts, width), reps))
+        m["bound_ms"], _ = k5_bound(x, starts, width)
+        log(f"K5 {name} ok ({shape}): bit-equal, device {m['ms']:.4f} ms (plain "
+            f"{m['plain_ms']:.4f} ms, torch.gather {m['library_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.5f} ms; events around one call {m['event_ms']:.4f} ms)")
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "event_ms"):
+            out[k] += m[k]
+        out["cases"].append(m)
+    out["shape"] = "; ".join(f"{c['name']} {c['shape']}" for c in out["cases"])
+    return out
+
+
+def augment_phase(device, k5, L: int, reps: int = 5, timer=None) -> dict:
+    """``device_augment_full`` on one full-width batch from a fixed
+    generator, through K5 and with K5's plain version: identical audio and
+    lens, lens in (0, L], zero past the lens, finite; ms per call (CUDA
+    events: host-bound, so wall time), its device time (``timer``,
+    default ``device_ms``) and K5's launches per call (``k5``, the kernel,
+    or None on the CPU)."""
+    timer = timer or device_ms
+    from rnnt_tpu_torch.data.augment_device import device_augment_full
+
+    audio, lens = augment_batch(L, device, seed=1)
+
+    def run():
+        return device_augment_full(torch.Generator(device=device).manual_seed(7),
+                                   audio, lens)
+
+    def count():
+        return k5.launches if k5 is not None else 4
+
+    if k5 is not None:
+        k5.launches = 0
+    got, got_lens = run()
+    sync(device)
+    per_call = count()
+    with k5_calls(plain=True):
+        want, want_lens = run()
+        plain_ms = cuda_ms(run, reps)
+    if count() != per_call:
+        raise AssertionError("K5 launched while its plain version was in place")
+    if not (torch.equal(got, want) and torch.equal(got_lens, want_lens)):
+        raise AssertionError("device_augment_full differs through K5 and its plain version "
+                             f"(max abs err {float((got - want).abs().max()):.3e})")
+    if not (bool(((got_lens > 0) & (got_lens <= L)).all()) and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"device_augment_full: lens {got_lens.tolist()} or non-finite audio")
+    past = torch.arange(L, device=got.device)[None, :] >= got_lens[:, None]
+    if bool((got[past] != 0).any()):
+        raise AssertionError("device_augment_full: audio past its lens is not zero")
+    ms = cuda_ms(run, reps)
+    dev_ms = timer(run, reps)
+    if per_call != 4:
+        raise AssertionError(f"K5 launched {per_call} times in one device_augment_full, not 4")
+    log(f"device_augment_full (B={audio.shape[0]}, L={L}): identical through K5 and its "
+        f"plain version; lens {lens.tolist()} -> {got_lens.tolist()}; {ms:.3f} ms per call "
+        f"(plain gathers {plain_ms:.3f} ms), device time {dev_ms:.3f} ms; K5 launches per "
+        f"call {per_call}")
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms, k5_per_call=per_call,
+                lens=got_lens.tolist())
+
+
 # --------------------------------- path ---------------------------------
 
 PATH_OVERRIDES = ["training.loss_impl=auto", "training.global_batch_size=4",
@@ -435,7 +642,7 @@ def path_phase(workdir: Path, device, kernels, config="base_convjs",
                 n_params=n_params, cfg=cfg, model=model)
 
 
-TRAIN_OVERRIDES = ["data.dataset=synthetic", "data.augment=false",
+TRAIN_OVERRIDES = ["data.dataset=synthetic",
                    "data.synthetic_seconds=10", "data.synthetic_size=96",
                    "training.global_batch_size=4", "training.pruned_warmup_steps=2",
                    "training.log_steps=1", "training.eval_max_elements=8",
@@ -470,15 +677,26 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
     for o in list(overrides) + [f"tokenizer.vocab_json={vocab}"]:
         base += ["--set", o]
     runs = {}
+    k5 = "window_gather" if any(k.name == "window_gather" for k in kernels) else None
 
-    def run(tag, impl, extra):
+    def run(tag, key, extra, k5_per_step: int, cached: bool):
+        """One cli.train run: every kernel but K5 launched in every step,
+        K5 ``k5_per_step`` times in every step, the cache's line printed
+        exactly when ``cached``."""
         for k in kernels:
             k.launches = 0
         t = time.time()
-        final_wer = cli_train.main(base + extra)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+            final_wer = cli_train.main(base + extra)
         sync(device)
         secs = time.time() - t
         launches = {k.name: k.launches for k in kernels}
+        cache_line = next((ln for ln in out.getvalue().splitlines()
+                           if ln.startswith("device sample cache:")), None)
+        if (cache_line is not None) != cached:
+            raise AssertionError(f"{tag}: cache line {cache_line!r}, expected "
+                                 f"{'one' if cached else 'none'}")
         run_dir = max((exp / model_name).glob("run-*"), key=lambda p: int(p.name[4:]))
         steps = _read_steps(run_dir)
         for st in steps:
@@ -487,23 +705,37 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
                 f"{st['audio_s_per_s']:.2f} audio-s/s, launches {st['launches']}")
             if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
                 raise AssertionError(f"{tag}: non-finite step {st}")
-            missing = [k.name for k in kernels if not st["launches"].get(k.name)]
+            missing = [k.name for k in kernels if k.name != k5 and not st["launches"].get(k.name)]
             if missing:
                 raise AssertionError(f"{tag} step {st['step']}: kernels not "
                                      f"launched: {missing}")
+            if k5 is not None and st["launches"].get(k5) != k5_per_step:
+                raise AssertionError(f"{tag} step {st['step']}: K5 launched "
+                                     f"{st['launches'].get(k5)} times, expected {k5_per_step}")
         log(f"{tag}: {len(steps)} steps, final WER {final_wer:.4f}, {secs:.1f} s "
-            f"(with start-up and eval); launches in the run {launches}")
-        runs[impl] = dict(launches=launches, steps=steps, run_dir=run_dir, seconds=secs)
+            f"(with start-up and eval); launches in the run {launches}"
+            + (f"; {cache_line}" if cache_line else "; batches streamed"))
+        runs[key] = dict(launches=launches, steps=steps, run_dir=run_dir, seconds=secs,
+                         cache=cache_line)
 
     from rnnt_tpu_torch.config.config import load_config, resolve_config
     model_name = load_config(resolve_config(config)).model_name
-    run("pruned warmup (steps 1-2)", "pruned_warmup", ["--max-steps", str(warmup_steps)])
+    # The flagship's data settings: augment true, augment_device full,
+    # staging auto (the corpus cached on the card).
+    run("pruned warmup (steps 1-2)", "pruned_warmup", ["--max-steps", str(warmup_steps)],
+        4, True)
     first = runs["pruned_warmup"]["run_dir"]
     run("pruned banded (steps 3-4)", "pruned",
         ["--max-steps", str(2 * warmup_steps), "--resume",
-         str(first / f"checkpoint_step_{warmup_steps}")])
+         str(first / f"checkpoint_step_{warmup_steps}")], 4, True)
     run("exact loss_impl=auto", "auto",
-        ["--max-steps", "2", "--set", "training.loss_impl=auto"])
+        ["--max-steps", "2", "--set", "training.loss_impl=auto"], 4, True)
+    run("exact loss_impl=auto, augmentation off", "auto_no_augment",
+        ["--max-steps", "2", "--set", "training.loss_impl=auto",
+         "--set", "data.augment=false"], 0, True)
+    run("host recipe in 2 threads + SpecAugment (pruned warmup)", "host_augment",
+        ["--max-steps", "2", "--set", "data.augment_device=false",
+         "--set", "data.num_workers=2", "--set", "training.spec_augment=true"], 0, False)
     ckpt = runs["pruned"]["run_dir"] / f"checkpoint_step_{2 * warmup_steps}"
     res = cli_eval.main([str(ckpt), "--device", str(device), "--batch-size", "4",
                          "--max-elements", "8"])
@@ -519,7 +751,8 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
 
 def _train_setup(device, train: dict):
     """(cfg, spec, fspec, model, one eval batch on ``device``) of the train
-    phase's configuration, the model fresh from seed 0."""
+    phase's configuration with augmentation off, the model fresh from seed
+    0."""
     from rnnt_tpu_torch.config.config import (
         apply_overrides, build_featurizer_spec, build_model_spec, load_config,
         resolve_config)
@@ -527,12 +760,29 @@ def _train_setup(device, train: dict):
     from rnnt_tpu_torch.train import loop, step
 
     cfg = apply_overrides(load_config(resolve_config(train["config"])),
-                          train["overrides"] + [f"tokenizer.vocab_json={train['vocab']}"])
+                          train["overrides"] + ["data.augment=false",
+                                                f"tokenizer.vocab_json={train['vocab']}"])
     spec = build_model_spec(cfg)
     model = rnnt_init(spec, seed=0, device=device)
     tokenizer = loop._load_tokenizer(cfg)
     batch = next(iter(loop.eval_batches(cfg, tokenizer, batch_size=4, max_batches=1)))
     return cfg, spec, build_featurizer_spec(cfg), model, step.batch_to_device(batch, device)
+
+
+class _Tee(io.TextIOBase):
+    """Write to several text streams at once."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 class _RoundBF16(torch.autograd.Function):
@@ -828,10 +1078,12 @@ def profile_phase(cfg, model, device, out_dir: Path) -> None:
 
 
 def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
-                        kind=torch.autograd.DeviceType.CUDA) -> None:
+                        kind=torch.autograd.DeviceType.CUDA,
+                        device_augment=False) -> None:
     """Trace ``steps`` train steps of the banded pruned loss (after 2
-    warm-up steps) at full width with torch.profiler: device time by kernel
-    and the idle share of the steps' wall time."""
+    warm-up steps) at full width with torch.profiler, with or without
+    device augmentation: device time by kernel and the idle share of the
+    steps' wall time."""
     import dataclasses
 
     from torch.profiler import profile
@@ -848,7 +1100,7 @@ def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
     batches = [step.batch_to_device(b, device) for b, _ in zip(it, range(steps + 2))]
     optimizer, _ = make_optimizer(tc, 100)
     fn = step.make_train_step(dataclasses.replace(spec, loss_impl="pruned"), fspec,
-                              optimizer, tc.precision)
+                              optimizer, tc.precision, device_augment=device_augment)
     state = step.TrainState(model, optimizer.init(dict(model.named_parameters())))
     for b in batches[:2]:
         state, m = fn(state, b, loop.step_generator(device, 0, state.step))
@@ -860,8 +1112,10 @@ def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
             float(m["loss"])
     wall = time.time() - t0
     audio = sum(float(b["audio_lens"].sum()) for b in batches[2:]) / fspec.sample_rate
-    report_trace(prof, wall, f"{steps} train steps (pruned, banded; {audio:.1f} s of "
-                 f"audio, {audio / wall:.2f} audio-s/s traced)", out_dir / "train_trace.json",
+    what = "device augmentation full" if device_augment else "augmentation off"
+    report_trace(prof, wall, f"{steps} train steps (pruned, banded, {what}; {audio:.1f} s "
+                 f"of audio, {audio / wall:.2f} audio-s/s traced)",
+                 out_dir / ("train_aug_trace.json" if device_augment else "train_trace.json"),
                  kind=kind)
 
 
@@ -878,9 +1132,12 @@ def main() -> None:
         sys.exit("chip_smoke: run from a checkout of the repository "
                  "(rnnt_tpu_torch/ is missing)")
     sys.path.insert(0, str(REPO))
+    from rnnt_tpu_torch.config.config import (
+        build_featurizer_spec, load_config, resolve_config)
     from rnnt_tpu_torch.ops.kernels import build_all
     from rnnt_tpu_torch.ops.lattice_pallas import K3, K4
     from rnnt_tpu_torch.ops.transducer_pallas import K1, K2
+    from rnnt_tpu_torch.ops.window_gather import K5
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -893,7 +1150,7 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}; TF32 off for fp32 matmuls and convs")
 
     t0 = time.time()
-    kernels = [K1, K2, K3, K4]
+    kernels = [K1, K2, K3, K4, K5]
     secs = build_all(kernels)
     log(f"built {[k.name for k in kernels]} in {secs:.1f} s")
     for k in kernels:
@@ -901,8 +1158,12 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  {k.name}: {line.strip()}")
 
+    # The flagship bucket the synthetic 10 s utterances land in: 1024 frames.
+    L = build_featurizer_spec(load_config(resolve_config("base_convjs"))).samples_for_frames(1024)
     measured = kernel_phase(device)
     measured.update(train_kernel_phase(device))
+    measured["K5"] = k5_phase(device, L)
+    augment = augment_phase(device, K5, L)
     with tempfile.TemporaryDirectory() as tmp:
         path = path_phase(Path(tmp), device, [K1, K3])
         if args.profile is not None:
@@ -912,11 +1173,12 @@ def main() -> None:
         grad_phase(device, kernels, train)
         if args.profile is not None:
             profile_train_phase(device, train, args.profile)
+            profile_train_phase(device, train, args.profile, device_augment="full")
 
     entries = []
-    for key, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4)):
+    for key, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4), ("K5", K5)):
         m = measured[key]
-        extra = {c: m[c] for c in ("long_case", "banded_case") if c in m}
+        extra = {c: m[c] for c in ("long_case", "banded_case", "cases") if c in m}
         if k.name in path["launches"]:
             extra["eval_launches"] = path["launches"][k.name]
         entries.append(dict(
@@ -926,9 +1188,15 @@ def main() -> None:
             launches_per_step={impl: c[k.name] for impl, c in train["per_step"].items()},
             max_abs_err=m["max_abs_err"],
             ms=m["ms"], kernel_ms=m["ms"], plain_ms=m["plain_ms"],
-            bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None,
-            library_note="no single PyTorch call computes this function",
+            bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            library_ms=m.get("library_ms"),
+            library_note=("torch.gather on the zero-padded rows with a prebuilt index; "
+                          "K5's ms, plain_ms and library_ms are device time from "
+                          "torch.profiler summed over the 4 calls of one step"
+                          if "library_ms" in m
+                          else "no single PyTorch call computes this function"),
             shape=m["shape"], **extra))
+    entries[-1]["augment_call"] = augment
     log(f"total {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

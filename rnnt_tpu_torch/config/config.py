@@ -260,6 +260,16 @@ def _coerce(value, current, path: str):
     doesn't match the current field's type raises."""
     if current is None or value is None:
         return value
+    if path.strip() == "data.augment_device":
+        # bool | "full", whichever the field holds now (the reference
+        # coerces to the current value's type, so a YAML "full" could not
+        # be overridden with false or true).
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, str) and value.lower() in ("true", "false", "full"):
+            return {"true": True, "false": False}.get(value.lower(), "full")
+        raise ValueError(f"override {path!r}: expected true, false or full, "
+                         f"got {value!r}")
     want = type(current)
     if isinstance(value, want) and not (want is float and
                                         isinstance(value, bool)):

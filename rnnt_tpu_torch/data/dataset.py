@@ -2,10 +2,11 @@
 
 The port's own copy of the host data layer of ``rnnt_tpu/data/dataset.py``:
 the wire formats (int16 at ``WIRE_SCALE``, 8-bit mu-law at half scale),
-the deterministic synthetic corpus, (samples, tokens) buckets and a
-serial ``BatchIterator`` that tokenizes, bucket-pads and collates numpy
-batches exactly as the JAX package does.  The Hugging Face corpus loaders,
-host augmentation and worker pools are not ported yet.
+the deterministic synthetic corpus, (samples, tokens) buckets and the
+``BatchIterator`` that augments (host recipe, per-row RNG), tokenizes,
+bucket-pads and collates numpy batches exactly as the JAX package does,
+serially or over a thread or process pool.  The Hugging Face corpus
+loaders are not ported yet.
 """
 
 from __future__ import annotations
@@ -114,55 +115,136 @@ class Buckets:
         return s, t
 
 
+# Fork-inheritance stash for process workers: set in the parent just before
+# the pool forks, read by ``_process_row_forked`` in the children, so nothing
+# (tokenizer, dataset) is pickled.
+_FORK_STASH: "BatchIterator | None" = None
+
+
+def _process_row_forked(idx: int):
+    return _FORK_STASH._process(idx)
+
+
+def _ordered_windowed_map(submit, fn, items, window: int):
+    """Parallel ``map`` that keeps at most ``window`` tasks in flight and
+    yields results in input order, so a pool that races ahead of the card
+    holds O(window) augmented utterances, not an epoch."""
+    from collections import deque
+
+    futs: deque = deque()
+    try:
+        for x in items:
+            futs.append(submit(fn, x))
+            if len(futs) >= window:
+                yield futs.popleft().result()
+        while futs:
+            yield futs.popleft().result()
+    finally:
+        for f in futs:
+            f.cancel()
+
+
 class BatchIterator:
-    """Tokenize, bucket-pad and batch a dataset, serially.
+    """Tokenize, augment, bucket-pad and batch a dataset.
 
     Yields numpy batches {"audio": (B, S), "audio_lens": (B,) i32,
     "targets": (B, U) i32, "target_lens": (B,) i32} where (S, U) come from
     the bucket grid and audio is in ``wire_dtype`` (float32, int16 or
     mulaw).  Utterances are grouped per bucket so every batch has one
-    shape; utterances longer than every bucket are dropped."""
+    shape; utterances longer than every bucket are dropped.
+
+    ``augmentor`` (data/augment.py) runs per row with its own
+    ``RandomState((seed * 1_000_003 + idx) % (2**31 - 1))``.
+    ``num_workers`` maps the per-row augment + tokenize over a pool of
+    threads (``worker_mode="thread"``; numpy and scipy release the GIL) or
+    of forked processes (``"process"``).  The per-row RNG makes serial,
+    thread and process runs give identical batches.  ``shard_id`` /
+    ``num_shards`` take a disjoint stride of the shuffled epoch order."""
 
     def __init__(self, dataset, tokenizer: UnigramTokenizer, buckets: Buckets,
-                 batch_size: int, *, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = True, max_batches: int | None = None,
-                 wire_dtype: str = "float32"):
+                 batch_size: int, *, augmentor=None, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = True,
+                 max_batches: int | None = None, num_workers: int = 0,
+                 worker_mode: str = "thread", shard_id: int = 0,
+                 num_shards: int = 1, wire_dtype: str = "float32"):
         if wire_dtype not in ("float32", "int16", "mulaw"):
             raise ValueError(f"wire_dtype must be float32|int16|mulaw, "
                              f"got {wire_dtype!r}")
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode must be thread|process, "
+                             f"got {worker_mode!r}")
         self.dataset = dataset
         self.tokenizer = tokenizer
         self.buckets = buckets
         self.batch_size = batch_size
+        self.augmentor = augmentor
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.max_batches = max_batches
+        self.num_workers = num_workers
+        self.worker_mode = worker_mode
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.wire_dtype = wire_dtype
 
     def _process(self, idx: int):
+        """Load, augment and tokenize one utterance (thread-safe: a fresh
+        RNG per row)."""
         row = self.dataset[int(idx)]
         audio = np.asarray(row["audio"]["array"], dtype=np.float32)
+        sr = row["audio"].get("sampling_rate", 16000)
+        if self.augmentor is not None:
+            rng = np.random.RandomState((self.seed * 1_000_003 + idx)
+                                        % (2 ** 31 - 1))
+            audio = self.augmentor(audio, sr, rng=rng)
         return audio, self.tokenizer.encode(row["text"].lower())
+
+    def _rows(self, order):
+        """(rows iterator, pool or None) over ``order``."""
+        window = max(4 * self.num_workers, 16)
+        if self.num_workers > 0 and self.worker_mode == "process":
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+            global _FORK_STASH
+            _FORK_STASH = self
+            pool = ProcessPoolExecutor(
+                max_workers=self.num_workers,
+                mp_context=multiprocessing.get_context("fork"))
+            return _ordered_windowed_map(pool.submit, _process_row_forked,
+                                         order, window), pool
+        if self.num_workers > 0:
+            from concurrent.futures import ThreadPoolExecutor
+            pool = ThreadPoolExecutor(max_workers=self.num_workers)
+            return _ordered_windowed_map(pool.submit, self._process, order,
+                                         window), pool
+        return map(self._process, order), None
 
     def __iter__(self) -> Iterator[dict]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed).shuffle(order)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
+        rows, pool = self._rows(order)
         pending: dict[tuple[int, int], list] = {}
         emitted = 0
-        for audio, tokens in map(self._process, order):
-            if len(tokens) == 0:
-                continue
-            b = self.buckets.pick(len(audio), len(tokens))
-            if b is None:
-                continue
-            pending.setdefault(b, []).append((audio, tokens))
-            if len(pending[b]) == self.batch_size:
-                yield self._collate(pending.pop(b), b)
-                emitted += 1
-                if self.max_batches and emitted >= self.max_batches:
-                    return
+        try:
+            for audio, tokens in rows:
+                if len(tokens) == 0:
+                    continue
+                b = self.buckets.pick(len(audio), len(tokens))
+                if b is None:
+                    continue
+                pending.setdefault(b, []).append((audio, tokens))
+                if len(pending[b]) == self.batch_size:
+                    yield self._collate(pending.pop(b), b)
+                    emitted += 1
+                    if self.max_batches and emitted >= self.max_batches:
+                        return
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
         if not self.drop_last:
             for b, items in pending.items():
                 if items:

@@ -6,9 +6,14 @@ Port of ``rnnt_tpu/train/loop.py``:
   batch, the exact eval loss (a pruned training objective is scored with
   the chunked exact loss), the eval forward and the batched greedy decode,
   then corpus WER against the references.
-* ``train`` — ``train`` at ``:149-498`` on its streamed single-process
-  path: epochs over a shuffled ``BatchIterator`` (seed = epoch) behind a
-  ``PrefetchIterator``, the pruned-warmup switch by step, metrics to
+* ``train`` — ``train`` at ``:149-498`` on one process: the augmentor
+  chosen as at ``:173-203`` (host recipe, device recipe or both), the
+  staging as at ``:280-318`` (the on-card corpus cache of
+  data/device_cache.py under ``staging: auto`` or ``device`` when there is
+  no host augmentor and the corpus fits its budget, else batches streamed
+  from a ``BatchIterator`` with the data's worker pool behind a
+  ``PrefetchIterator``), epochs in the cache's or the iterator's order
+  (seed = epoch), the pruned-warmup switch by step, metrics to
   ``metrics.jsonl`` and stdout every ``log_steps``, the NaN guard with its
   emergency checkpoint, periodic eval and checkpoints, a final checkpoint,
   and the last WER returned.  Each step's record in ``metrics.jsonl`` also
@@ -32,7 +37,15 @@ from rnnt_tpu_torch.config.config import (
     build_model_spec,
     save_config,
 )
+from rnnt_tpu_torch.data.augment import build_augmentor, default_augmentor
+from rnnt_tpu_torch.data.augment_device import (
+    DEVICE_SIDE_KINDS,
+    DEVICE_SIDE_KINDS_FULL,
+    host_only_default_augmentor,
+    warn_stripped_param_mismatch,
+)
 from rnnt_tpu_torch.data.dataset import BatchIterator, Buckets, synthetic_dataset
+from rnnt_tpu_torch.data.device_cache import DeviceSampleCache, gather_rows
 from rnnt_tpu_torch.data.pipeline import PrefetchIterator
 from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer
 from rnnt_tpu_torch.decode.greedy import greedy_decode
@@ -176,43 +189,93 @@ class MetricsLogger:
 
 
 def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
-    """The dropout generator of one step, on ``device``: seeded from the run
-    seed and the step (the reference folds the step into its key), so a
-    resumed run draws what an uninterrupted one would."""
+    """The generator of one step (augmentation draws, then dropout), on
+    ``device``: seeded from the run seed and the step (the reference folds
+    the step into its key), so a resumed run draws what an uninterrupted
+    one would."""
     return torch.Generator(device=device).manual_seed(
         (42 + 1009 * seed) * 1_000_003 + step)
 
 
 def _check_ported(cfg: Config) -> None:
-    dc = cfg.data
-    if dc.staging not in ("auto", "stream", "device"):
-        raise ValueError(f"data.staging must be auto|stream|device, "
-                         f"got {dc.staging!r}")
-    if dc.staging == "device":
-        raise NotImplementedError(
-            "data.staging: device (the on-card corpus cache) is not ported to "
-            "rnnt_tpu_torch yet: slice 3; use staging auto or stream")
     if cfg.mesh.data > 1 or cfg.mesh.model > 1:
         raise NotImplementedError(
             f"a mesh of data={cfg.mesh.data}, model={cfg.mesh.model} is not "
             "ported to rnnt_tpu_torch yet (multi-GPU is slice 4); use one card")
-    if dc.augment:
-        raise NotImplementedError(
-            "data.augment (host augmentation and device augmentation, K5) is "
-            "not ported to rnnt_tpu_torch yet: slice 3; set data.augment=false")
+
+
+def select_augmentor(cfg: Config, make_augmentor=None):
+    """The host augmentor of a run (None for none), as the reference picks
+    it: the ``make_augmentor`` hook; else the ``data.augmentations`` list,
+    without the kinds the device recipe runs when ``data.augment_device`` is
+    on (a warning for each stripped op whose settings differ); else nothing
+    on the host under ``augment_device: full``, the length-changing ops
+    under ``augment_device: true``, the whole default recipe otherwise."""
+    dc = cfg.data
+    if not dc.augment:
+        return None
+    if make_augmentor is not None:
+        return make_augmentor(cfg)
+    full = dc.augment_device == "full"
+    if dc.augmentations:
+        aug_cfgs = dc.augmentations
+        if dc.augment_device:
+            skip = DEVICE_SIDE_KINDS_FULL if full else DEVICE_SIDE_KINDS
+            warn_stripped_param_mismatch(
+                [c for c in aug_cfgs if c.get("kind") in skip])
+            aug_cfgs = [c for c in aug_cfgs if c.get("kind") not in skip]
+        return build_augmentor(aug_cfgs) if aug_cfgs else None
+    if full:
+        return None
+    if dc.augment_device:
+        return host_only_default_augmentor()
+    return default_augmentor()
+
+
+def build_cache(cfg: Config, train_ds, tokenizer, buckets, fspec, augmentor,
+                device) -> DeviceSampleCache | None:
+    """The on-card corpus cache the run trains from, or None to stream:
+    ``staging: auto`` caches when there is no host augmentor and the
+    corpus fits ``device_cache_budget_mb``; ``device`` insists (raises with
+    a host augmentor or over the budget); ``stream`` never caches."""
+    dc = cfg.data
+    if dc.staging not in ("auto", "stream", "device"):
+        raise ValueError(f"data.staging must be auto|stream|device, "
+                         f"got {dc.staging!r}")
+    if dc.staging == "device" and augmentor is not None:
+        raise ValueError("data.staging: device requires no host-side "
+                         "augmentation (set data.augment_device: full "
+                         "or data.augment: false)")
+    if dc.staging == "stream" or augmentor is not None:
+        return None
+    cache = DeviceSampleCache.build(
+        train_ds, tokenizer, buckets, wire_dtype=dc.wire_dtype,
+        budget_bytes=dc.device_cache_budget_mb << 20,
+        sample_rate=fspec.sample_rate, num_workers=dc.num_workers,
+        device=device)
+    if cache is None:
+        if dc.staging == "device":
+            raise ValueError(f"data.staging: device — corpus exceeds "
+                             f"device_cache_budget_mb={dc.device_cache_budget_mb}")
+        print("note: corpus exceeds device_cache_budget_mb; streaming batches")
+    else:
+        print(f"device sample cache: {cache.n_samples} samples, "
+              f"{cache.nbytes() / 2**20:.1f} MiB on {device}")
+    return cache
 
 
 def train(cfg: Config, *, output_base: str | Path = "experiments",
           resume: str | None = None, max_steps: int | None = None,
-          device=None) -> float:
+          device=None, make_augmentor=None) -> float:
     """Train per ``cfg`` on one card (CUDA unless ``device="cpu"``); return
     the last eval WER.
 
-    Batches stream from the host: ``data.staging: auto`` streams, since the
-    device-resident corpus cache is slice 3 (``staging: device`` raises), as
-    do a data or model mesh larger than 1, data augmentation and a
-    non-synthetic dataset.  A run writes ``<output_base>/<model>/run-N`` with
-    config.yaml, metrics.jsonl and ``checkpoint_step_<step>`` directories."""
+    Every ``data.augment`` / ``augment_device`` / ``staging`` /
+    ``training.spec_augment`` setting runs as in the reference;
+    ``make_augmentor(cfg)``, when given, builds the host augmentor.  A data
+    or model mesh larger than 1 and a non-synthetic dataset raise.  A run
+    writes ``<output_base>/<model>/run-N`` with config.yaml, metrics.jsonl
+    and ``checkpoint_step_<step>`` directories."""
     dev = resolve_device(device)
     _check_ported(cfg)
     tc = cfg.training
@@ -221,6 +284,9 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
     tokenizer = _load_tokenizer(cfg)
     train_ds, _ = _load_datasets(cfg)
     buckets = Buckets.from_frames(tc.frame_buckets, tc.token_buckets, fspec)
+    augmentor = select_augmentor(cfg, make_augmentor)
+    device_augment = cfg.data.augment and cfg.data.augment_device
+    cache = build_cache(cfg, train_ds, tokenizer, buckets, fspec, augmentor, dev)
 
     output_dir = ckpt.next_run_dir(output_base, cfg.model_name)
     save_config(cfg, output_dir / "config.yaml")
@@ -242,7 +308,8 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         print(f"Resumed from {resume} at step {step}")
 
     step_fn = make_train_step(spec, fspec, optimizer, tc.precision,
-                              spec_augment=tc.spec_augment)
+                              spec_augment=tc.spec_augment,
+                              device_augment=device_augment)
     # k2-style pruned warmup: the exact loss (+ simple heads) for the first
     # pruned_warmup_steps, then the banded loss; chosen by step, so resume
     # picks the right one.
@@ -251,7 +318,8 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         warmup_until = tc.pruned_warmup_steps
         warm_fn = make_train_step(
             dataclasses.replace(spec, loss_impl="pruned_warmup"), fspec,
-            optimizer, tc.precision, spec_augment=tc.spec_augment)
+            optimizer, tc.precision, spec_augment=tc.spec_augment,
+            device_augment=device_augment)
 
     logger = MetricsLogger(output_dir)
     last_wer = float("nan")
@@ -303,21 +371,35 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             print(f"eval wer at step {state.step}: {last_wer:.4f} "
                   f"(exact nll {res['nll']:.3f})")
 
+    def epoch_batches(epoch: int):
+        """(batch on the device, its audio seconds) of one epoch: rows
+        gathered from the cache in its order, or streamed batches."""
+        if cache is not None:
+            for gi, idx in cache.epoch_batches(tc.global_batch_size, seed=epoch):
+                yield (gather_rows(cache.groups[gi], idx),
+                       cache.batch_audio_seconds(gi, idx))
+            return
+        it = BatchIterator(train_ds, tokenizer, buckets,
+                           batch_size=tc.global_batch_size,
+                           augmentor=augmentor, shuffle=True, seed=epoch,
+                           num_workers=cfg.data.num_workers,
+                           worker_mode=cfg.data.worker_mode,
+                           wire_dtype=cfg.data.wire_dtype)
+        for batch in PrefetchIterator(it, depth=4):
+            yield (batch_to_device(batch, dev),
+                   float(batch["audio_lens"].sum()) / fspec.sample_rate)
+
     model.train()
     done = state.step >= total_steps
     for epoch in range(max(tc.num_epochs, 1)):
         if done:
             break
-        it = BatchIterator(train_ds, tokenizer, buckets,
-                           batch_size=tc.global_batch_size, shuffle=True,
-                           seed=epoch, wire_dtype=cfg.data.wire_dtype)
-        for batch in PrefetchIterator(it, depth=4):
+        for batch, seconds in epoch_batches(epoch):
             fn = warm_fn if warm_fn is not None and state.step < warmup_until else step_fn
             before = launch_counts()
-            state, metrics = fn(state, batch_to_device(batch, dev),
-                                step_generator(dev, tc.seed, state.step))
+            state, metrics = fn(state, batch, step_generator(dev, tc.seed, state.step))
             launched = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
-            audio_secs += float(batch["audio_lens"].sum()) / fspec.sample_rate
+            audio_secs += seconds
             pending.append((state.step, metrics, launched))
             if state.step % tc.log_steps == 0:
                 flush(epoch)

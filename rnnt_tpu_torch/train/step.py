@@ -1,9 +1,13 @@
 """The train step, the eval forward and the loss over raw-audio batches.
 
-Port of ``rnnt_tpu/train/step.py``: wire audio is decoded and featurized on
-the device, features are cast to the compute dtype (bf16 or fp32), the
-encoder and predictor run (in training with dropout from an explicit
-generator and batch-norm batch statistics), and the loss dispatches on
+Port of ``rnnt_tpu/train/step.py``, in its order: wire audio is decoded on
+the device; in training, device augmentation (``device_augment``: True for
+the chorus / compressor / noise / peak half, "full" for the whole recipe
+with new lens, data/augment_device.py) runs on it; it is featurized;
+in training, SpecAugment masks the features (``spec_augment``); features
+are cast to the compute dtype (bf16 or fp32); the frame counts come from
+the (new) lens; the encoder and predictor run (in training with dropout
+and batch-norm batch statistics); and the loss dispatches on
 ``loss_impl``:
 
 * ``pallas`` — K1 + K3 forward, K2 + K4 backward (ops/transducer_pallas.py);
@@ -14,9 +18,10 @@ generator and batch-norm batch statistics), and the loss dispatches on
 
 ``make_train_step`` returns ``step(state, batch, generator) -> (state,
 metrics)``: loss, gradient, global and per-submodel gradient norms (before
-the clip), the optimizer update and the new batch-norm statistics.  Spec
-augmentation belongs to slice 3 and raises here; data augmentation raises
-in ``train.loop.train``.
+the clip), the optimizer update and the new batch-norm statistics.  One
+generator per step draws, in this order, the device augmentation, the
+SpecAugment masks and the dropout bits, so a resumed run draws what a
+straight one does; with no generator none of the three runs.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from rnnt_tpu_torch.data import augment, augment_device
 from rnnt_tpu_torch.data.dataset import MULAW_PRESCALE, WIRE_SCALE
 from rnnt_tpu_torch.models.encoder import encoder_out_len
 from rnnt_tpu_torch.models.rnnt import RNNT, RNNTSpec, resolve_loss_impl, rnnt_forward
@@ -91,23 +97,45 @@ def make_eval_forward(spec: RNNTSpec, fspec: FeaturizerSpec,
 
 
 def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
-                 spec_augment: bool = False):
+                 spec_augment: bool = False,
+                 device_augment: bool | str = False):
     """``loss_fn(model, batch, *, training=False, generator=None,
     new_state=None) -> mean loss``; in training the new batch-norm
-    statistics go into ``new_state`` when a dict is given."""
+    statistics go into ``new_state`` when a dict is given, and with a
+    generator the augmentations run."""
     if spec.loss_impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss_impl {spec.loss_impl!r}")
-    if spec_augment:
-        raise NotImplementedError(
-            "training.spec_augment is not ported to rnnt_tpu_torch yet: slice 3")
+    if device_augment not in (False, True, "full"):
+        raise ValueError(f"device_augment must be False|True|'full', "
+                         f"got {device_augment!r}")
     featurize = make_featurizer(fspec)
     dtype = compute_dtype(precision)
 
     def loss_fn(model: RNNT, batch: dict, *, training: bool = False,
                 generator: torch.Generator | None = None,
                 new_state: dict | None = None) -> torch.Tensor:
-        feats = featurize(decode_wire_audio(batch["audio"])).to(dtype)
-        feat_lens = feature_lens_from_samples(batch["audio_lens"], fspec)
+        wave = decode_wire_audio(batch["audio"])
+        audio_lens = batch["audio_lens"]
+        augmenting = training and generator is not None
+        if device_augment and augmenting:
+            B, L = wave.shape
+            if device_augment == "full":
+                draws = augment_device.device_augment_full_draws(
+                    generator, B, L, device=wave.device)
+                wave, audio_lens = augment_device.device_augment_full_apply(
+                    draws, wave, audio_lens, fspec.sample_rate)
+            else:
+                draws = augment_device.device_augment_draws(
+                    generator, B, L, device=wave.device)
+                wave = augment_device.device_augment_apply(
+                    draws, wave, audio_lens, fspec.sample_rate)
+        feats = featurize(wave)
+        if spec_augment and augmenting:
+            draws = augment.spec_augment_draws(generator, *feats.shape,
+                                               device=feats.device)
+            feats = augment.spec_augment_apply(feats, draws)
+        feats = feats.to(dtype)
+        feat_lens = feature_lens_from_samples(audio_lens, fspec)
         audio, text, state = rnnt_forward(model, feats, batch["targets"],
                                           training=training, generator=generator)
         if new_state is not None:
@@ -148,13 +176,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
-                    precision: str = "bf16", spec_augment: bool = False):
+                    precision: str = "bf16", spec_augment: bool = False,
+                    device_augment: bool | str = False):
     """``step(state, batch, generator) -> (state, metrics)``.  ``batch``
     holds tensors on the model's device; ``generator`` (on that device, or
-    None for no dropout) draws the dropout bits.  Metrics are 0-d tensors:
-    loss, grad_norm (before the clip), total_target_len and
-    grad_norm/{encoder,predictor,joint}."""
-    loss_fn = make_loss_fn(spec, fspec, precision, spec_augment=spec_augment)
+    None for no augmentation and no dropout) draws the augmentations and
+    the dropout bits.  Metrics are 0-d tensors: loss, grad_norm (before the
+    clip), total_target_len and grad_norm/{encoder,predictor,joint}."""
+    loss_fn = make_loss_fn(spec, fspec, precision, spec_augment=spec_augment,
+                           device_augment=device_augment)
 
     def step(state: TrainState, batch: dict, generator):
         model = state.model

@@ -1,5 +1,6 @@
-"""K1 and K2 (fused joint forward and backward) and K3 and K4 (alpha and
-beta recursions) on the card against their plain PyTorch versions.
+"""K1 and K2 (fused joint forward and backward), K3 and K4 (alpha and
+beta recursions) and K5 (window gather) on the card against their plain
+PyTorch versions.
 Skipped without CUDA; on a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda
@@ -12,7 +13,8 @@ both versions, but the logits it comes from differ in their last float32
 bits, so a few dl values round to the neighbouring bf16 (2^-8 relative),
 and fp32 atomics sum in a varying order.  K4: the gradients are
 exp(alpha + lp + beta - ll) with exponents summed from O(10^2-10^3)
-log-probs in another order, so atol 1e-4, rtol 3e-3.
+log-probs in another order, so atol 1e-4, rtol 3e-3.  K5 copies values:
+bit-equal.
 """
 
 import math
@@ -26,6 +28,7 @@ from rnnt_tpu_torch.ops.transducer import NEG
 from rnnt_tpu_torch.ops.transducer_pallas import (
     K1, K2, fused_joint_backward, fused_joint_bwd_plain, fused_joint_outputs,
     fused_joint_outputs_plain)
+from rnnt_tpu_torch.ops.window_gather import K5, gather_windows, gather_windows_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -155,6 +158,25 @@ def test_k4_matches_plain(cuda, shape):
         _close(x, y, atol=1e-4, rtol=3e-3)
 
 
+@pytest.mark.parametrize("B,L,N,width,lo,hi", [
+    (4, 165120, 1282, 256, 0, 165120),     # chorus rows (L + pad)
+    (4, 164096, 2564, 128, 0, 164096),     # resample
+    (4, 164080, 1282, 128, -300, 164500),  # trim; clipped starts
+    (4, 164080, 639, 512, 0, 163568),      # time-stretch frames
+    (3, 1000, 17, 256, -50, 1100),         # N % 8 != 0, windows past L
+    (1, 1, 3, 128, -2, 3),                 # a one-sample row
+])
+def test_k5_matches_plain(cuda, B, L, N, width, lo, hi):
+    g = torch.Generator().manual_seed(L + N)
+    x = torch.randn(B, L, generator=g).to(cuda)
+    starts = torch.randint(lo, hi, (B, N), generator=g, dtype=torch.int32).to(cuda)
+    before = K5.launches
+    got = gather_windows(x, starts, width)
+    torch.cuda.synchronize()
+    assert K5.launches == before + 1
+    assert torch.equal(got, gather_windows_plain(x, starts, width))
+
+
 def test_wrappers_check_inputs(cuda):
     x = torch.zeros((1, 4, 3), device=cuda)
     lens = torch.ones((1,), dtype=torch.int32, device=cuda)
@@ -166,3 +188,7 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="dtype"):
         fused_joint_outputs(bf.float(), bf, bf[0].T.contiguous(), x[0, 0],
                             lens.view(1, 1), 0)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_windows(x[0], lens.view(1, 1).long(), 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_windows(x[0].T.contiguous().T, lens.repeat(4).view(4, 1), 128)

@@ -90,6 +90,7 @@ def test_kernels_refuse_other_devices():
     from rnnt_tpu_torch.ops.lattice_pallas import alpha_forward, beta_backward
     from rnnt_tpu_torch.ops.transducer_pallas import (
         fused_joint_backward, fused_joint_outputs)
+    from rnnt_tpu_torch.ops.window_gather import gather_windows
 
     meta = torch.empty((1, 2, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
@@ -101,3 +102,5 @@ def test_kernels_refuse_other_devices():
     with pytest.raises(ValueError, match="K2 runs on CUDA or the CPU"):
         fused_joint_backward(meta, meta, meta, meta, meta, 0, meta, meta, meta,
                              meta)
+    with pytest.raises(ValueError, match="K5 runs on CUDA or the CPU"):
+        gather_windows(meta[0], meta[0], 128)
