@@ -16,6 +16,12 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    and at edge cases — with the tolerances stated below, timed with CUDA
    events (median after warm-up) beside the least time the card could take
    and, for K5, one ``torch.gather`` call computing the same function;
+3a. chain phase (slice 4): K6 and K7 on every shard of the eval lattice
+   (4, 504, 65) cut into 2 shards and the long lattice (4, 1000, 257) cut
+   into 4, each shard at its global row offset with the previous (K6) or
+   next (K7) shard's carry and t_lens that end inside, at the edge of and
+   before a shard, against their plain versions; the chain of shards
+   against K3 + K4 on the whole lattice; times per shard;
 3b. augmentation phase (slice 3): ``device_augment_full`` on one
    full-width batch from a fixed generator, through K5 and with K5's plain
    version in its place: identical audio and lens, lens in (0, L], zero
@@ -48,8 +54,21 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    K1-K4 swapped for plain PyTorch under autograd (rounded where the
    kernels round, the alpha recursion in float64), and for the exact loss
    also the bf16 chunked joint under autograd;
-7. print a ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}``
-   line.
+6b. multi-rank phase (slice 4): ``python -m torch.distributed.run
+   --nproc-per-node 2 -m rnnt_tpu_torch.cli.train`` on full-width
+   ``base_convjs`` with the YAML's data settings, 2 ranks sharing this
+   card over gloo (``--device cuda:0 --dist-backend gloo``), 2 steps: the
+   T-sharded lattice (``lattice_shard_t=true, mesh.model=2``; K6 and K7
+   once per step on each rank, K3/K4 never; rank 0's eval through K1 +
+   K3) against 1 rank with the chunked loss, and the data-parallel
+   flagship (``mesh.data=2``, 1 pruned-warmup step and 1 banded step; K1-K5
+   on each rank) against 1 rank: each step's loss and gradient norm within
+   the stated tolerances; then what the transport costs: a carry row per
+   hop, the log-likelihood all-reduce and the flat gradient all-reduce
+   over gloo (``--exchange``, one rank of that measurement);
+7. print the card's name and power limit, a ``{"multi_rank": ...}`` line,
+   a ``{"kernels": [...]}`` line (K1-K7), then, last, the
+   ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
 the path phase) and of three banded train steps without and with device
@@ -70,7 +89,9 @@ import gzip
 import io
 import json
 import math
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -164,15 +185,16 @@ def device_ms(fn, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise AssertionError("the profiler saw no device activity")
-    return sum(t.end - t.start for t in spans) / reps / 1e3
+    for _ in range(3):  # a session now and then reports no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(t.end - t.start for t in spans) / reps / 1e3
+    raise AssertionError("the profiler saw no device activity in 3 sessions")
 
 
 def sync(device) -> None:
@@ -283,7 +305,7 @@ def kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE, long_case=K3_LON
         nll_p, alpha_p = alpha_plain(*k3)
         err = check_k3(nll, alpha, nll_p, alpha_p, k3[2], k3[3])
         ms = cuda_ms(lambda: alpha_forward(*k3), reps)
-        plain_ms = cuda_ms(lambda: alpha_plain(*k3), 2, warmup=1)
+        plain_ms = cuda_ms(lambda: alpha_plain(*k3), 1, warmup=0)  # host-bound: one call
         bound_ms, bound_by = k3_bound(**dims)
         log(f"K3 {tag} ok {dims}: max abs err {err:.3e}, {ms:.4f} ms "
             f"(plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms)")
@@ -373,7 +395,7 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
                   for n, x, y in zip(("glpb", "glpl"), got, want))
         bound_ms, bound_by = k4_bound(k4[0], k4[2])
         m = dict(max_abs_err=err, ms=cuda_ms(lambda: beta_backward(*args), reps),
-                 plain_ms=cuda_ms(lambda: beta_plain(*args), 2, warmup=1),
+                 plain_ms=cuda_ms(lambda: beta_plain(*args), 1, warmup=0),  # one call
                  bound_ms=bound_ms, bound_by=bound_by,
                  shape="B={B} T={T} U1={U1}".format(**dims))
         log(f"K4 {tag} ok {dims}: max abs err {err:.3e}, {m['ms']:.4f} ms "
@@ -382,6 +404,135 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
             out["K4"] = m
         else:
             out["K4"]["long_case"] = m
+    return out
+
+
+# ------------------------- K6 and K7: the T-sharded chain -------------------------
+
+# (tag, lattice, shards): the eval lattice cut into 2 shards, the long one into 4.
+CHAIN_CASES = (("eval", dict(B=4, T=504, U1=65), 2), ("long", K3_LONG, 4))
+
+
+def chain_lens(T: int, n: int, t_lens):
+    """t_lens that end inside a later shard, at the edge of a shard (its
+    last row), before the last shard, and at T."""
+    rows = -(-T // n)
+    ends = [rows + rows // 2, rows * (n // 2), rows // 2, T]
+    return torch.tensor(ends[: len(t_lens)], dtype=torch.int32, device=t_lens.device)
+
+
+def chain_bound(B, T, U1, t_lens, t0: int, kernel: str) -> tuple[float, str]:
+    """(ms, what bounds it) of one shard of T rows at global row t0: K6
+    reads lp_blank and lp_label and writes alpha, all rows, against one
+    log-sum-exp per cell; K7 reads lp_blank, lp_label and alpha for this
+    shard's rows below each sample's t_len and writes both gradients in
+    full, against one log-sum-exp and two exps per live cell.  The (B, U)
+    carry rows and (B,) vectors are counted too."""
+    live = float((t_lens.long() - t0).clamp(0, T).sum()) * U1
+    if kernel == "K6":
+        nbytes, ops = 3 * 4 * B * T * U1 + 2 * 4 * B * U1 + 3 * 4 * B, 7.0 * B * T * U1
+    else:
+        nbytes = 3 * 4 * live + 2 * 4 * B * T * U1 + 2 * 4 * B * U1 + 4 * 4 * B
+        ops = 12.0 * live
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_live(name, got, want, tol) -> float:
+    """check_close on the cells whose plain value is not log-zero; the
+    log-zero cells must stay log-zero."""
+    from rnnt_tpu_torch.ops.transducer import NEG
+
+    live = want > NEG / 2
+    if not bool((got[~live] <= NEG / 2).all()):
+        raise AssertionError(f"{name}: a log-zero cell of the plain version is live")
+    return check_close(name, got[live], want[live], **tol)
+
+
+def chain_kernel_phase(device, cases=CHAIN_CASES, reps=20) -> dict:
+    """K6 and K7 on every shard of the eval lattice (2 shards) and the long
+    lattice (4 shards), each shard at its nonzero t0 with the previous
+    shard's carry and t_lens that end inside, at the edge of and before a
+    shard: against their plain versions (K3_TOL, K4_TOL), then the chain of
+    shards against K3 + K4 on the whole lattice; times per shard (CUDA
+    events) beside the bound and the plain version's time."""
+    from rnnt_tpu_torch.ops.lattice_pallas import (
+        alpha_chain_forward, alpha_chain_plain, alpha_forward, beta_backward,
+        beta_chain_backward, beta_chain_plain)
+    from rnnt_tpu_torch.ops.transducer import NEG
+
+    out = {}
+    for tag, dims, n in cases:
+        lpb, lpl, t_lens, u_lens = k3_inputs(**dims, device=device, seed=3)
+        t_lens = chain_lens(dims["T"], n, t_lens)
+        B, T, U1 = lpb.shape
+        rows = -(-T // n)
+        shards = [(s * rows, lpb[:, s * rows:(s + 1) * rows].contiguous(),
+                   lpl[:, s * rows:(s + 1) * rows].contiguous()) for s in range(n)]
+        err6 = err7 = 0.0
+        per_shard = []
+        carry = torch.full((B, U1), NEG, device=device)
+        alphas, lls, carries_in = [], [], []
+        for t0, b, l in shards:
+            carries_in.append(carry)
+            got = alpha_chain_forward(b, l, t_lens, u_lens, t0, carry)
+            want = alpha_chain_plain(b, l, t_lens, u_lens, t0, carry)
+            err6 = max(err6, check_live(f"K6 {tag} t0={t0} alpha", got[0], want[0], K3_TOL),
+                       check_close(f"K6 {tag} t0={t0} ll", got[1], want[1], **K3_TOL),
+                       check_live(f"K6 {tag} t0={t0} carry", got[2], want[2], K3_TOL))
+            alphas.append(got[0])
+            lls.append(got[1])
+            carry = got[2]
+        ll = sum(lls)
+        g = torch.ones_like(ll)
+        grads = [None] * n
+        carry = torch.full((B, U1), NEG, device=device)
+        for s in reversed(range(n)):
+            t0, b, l = shards[s]
+            args = (b, l, alphas[s], t_lens, u_lens, ll, g, t0, carry)
+            got = beta_chain_backward(*args)
+            want = beta_chain_plain(*args)
+            err7 = max(err7, check_close(f"K7 {tag} t0={t0} glpb", got[0], want[0], **K4_TOL),
+                       check_close(f"K7 {tag} t0={t0} glpl", got[1], want[1], **K4_TOL),
+                       check_live(f"K7 {tag} t0={t0} carry", got[2], want[2], K4_TOL))
+            grads[s] = got[:2]
+            m = dict(t0=t0, rows=b.shape[1],
+                     k6_ms=cuda_ms(lambda: alpha_chain_forward(b, l, t_lens, u_lens, t0,
+                                                               carries_in[s]), reps),
+                     k7_ms=cuda_ms(lambda: beta_chain_backward(*args), reps),
+                     # the plain stages are Python loops of small launches (host
+                     # time, 0.4-0.9 s a shard): one call each
+                     k6_plain_ms=cuda_ms(lambda: alpha_chain_plain(b, l, t_lens, u_lens, t0,
+                                                                   carries_in[s]), 1, warmup=0),
+                     k7_plain_ms=cuda_ms(lambda: beta_chain_plain(*args), 1, warmup=0))
+            m["k6_bound_ms"], m["k6_bound_by"] = chain_bound(B, b.shape[1], U1, t_lens, t0, "K6")
+            m["k7_bound_ms"], m["k7_bound_by"] = chain_bound(B, b.shape[1], U1, t_lens, t0, "K7")
+            per_shard.insert(0, m)
+            carry = got[2]
+        # The chain against K3 + K4 on the whole lattice.
+        nll, alpha_full = alpha_forward(lpb, lpl, t_lens, u_lens)
+        check_k3(-ll, torch.cat(alphas, 1), nll, alpha_full, t_lens, u_lens)
+        glpb, glpl = beta_backward(lpb, lpl, alpha_full, t_lens, u_lens, nll, g)
+        for nm, x, y in (("glpb", torch.cat([gb for gb, _ in grads], 1), glpb),
+                         ("glpl", torch.cat([gl for _, gl in grads], 1), glpl)):
+            check_close(f"chain {tag}: K7 {nm} vs K4's", x, y, **K4_TOL)
+        chain = dict(k6_ms=sum(m["k6_ms"] for m in per_shard),
+                     k7_ms=sum(m["k7_ms"] for m in per_shard),
+                     k3_ms=cuda_ms(lambda: alpha_forward(lpb, lpl, t_lens, u_lens), reps),
+                     k4_ms=cuda_ms(lambda: beta_backward(lpb, lpl, alpha_full, t_lens,
+                                                          u_lens, nll, g), reps))
+        log(f"K6/K7 {tag} ok {dims} in {n} shards of {rows} rows, t_lens "
+            f"{t_lens.tolist()}: max abs err K6 {err6:.3e}, K7 {err7:.3e}; the chain "
+            "matches K3 + K4 on the whole lattice; per shard (t0: K6 ms / K7 ms, "
+            "bounds, plain) "
+            + "; ".join(f"{m['t0']}: {m['k6_ms']:.4f} / {m['k7_ms']:.4f} ms (bound "
+                        f"{m['k6_bound_ms']:.6f} / {m['k7_bound_ms']:.6f}, plain "
+                        f"{m['k6_plain_ms']:.2f} / {m['k7_plain_ms']:.2f})"
+                        for m in per_shard)
+            + f"; library ms: none; chain K6 {chain['k6_ms']:.4f} + K7 {chain['k7_ms']:.4f} "
+            f"ms against K3 {chain['k3_ms']:.4f} + K4 {chain['k4_ms']:.4f} ms")
+        out[tag] = dict(err6=err6, err7=err7, shards=per_shard, chain=chain, n=n,
+                        shape=f"B={B} T={rows} U1={U1} (T={T} in {n} shards)")
     return out
 
 
@@ -659,7 +810,9 @@ def _read_steps(run_dir: Path) -> list[dict]:
     return [dict(step=s, loss=r["loss/train"], grad_norm=r["total_norm/train"],
                  seconds=r["step_seconds"], audio_s_per_s=r["audio_seconds_per_sec"],
                  launches={k.split("/", 1)[1]: n for k, n in r.items()
-                           if k.startswith("launches/")})
+                           if k.startswith("launches/")},
+                 by_rank={k.split("/", 1)[1]: n for k, n in r.items()
+                          if k.startswith("launches_by_rank/")})
             for s, r in sorted(rows.items()) if "loss/train" in r]
 
 
@@ -747,6 +900,310 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
                        for k in kernels} for impl, r in runs.items()}
     return dict(runs=runs, launches=total, per_step=per_step,
                 overrides=list(overrides), vocab=vocab, config=config)
+
+
+# ----------------------------- multi-rank training -----------------------------
+
+RANK_TIMEOUT = 600  # seconds for one torch.distributed.run of cli.train
+# Step for step agreement of a 2-rank run with the 1-rank run, relative, in
+# the loss and the global gradient norm (see multi_rank_phase): about 10x
+# the gaps measured on an H100 (700 W).  T-sharded: loss 1.1e-6, gradient
+# norm 6.3e-7 at step 1 (the same weights; the model ranks' partial bf16
+# encoder gradients summed) and 9.3e-4 at step 2, whose weights differ by
+# the sign Adam's first update gives the round-off gradients of the conv
+# biases in front of instance norms (on the CPU in float32 both steps
+# agree exactly, tests/test_torch_distributed.py).  Data-parallel: loss
+# up to 3.7e-6, gradient norm 1.6e-4 at step 1 (each rank's bf16
+# convolutions run on 2 rows instead of 4, so cuDNN may sum in another
+# order) and 3.6e-5 to 7.7e-4 at step 2 over three runs (the same Adam
+# sign noise).
+TSHARD_RTOL = dict(loss=1e-5, grad_norm=1e-2)
+DP_RTOL = dict(loss=5e-5, grad_norm=1e-2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(n: int, args: list, log_path: Path, timeout: int = RANK_TIMEOUT) -> None:
+    """``python -m torch.distributed.run --nproc-per-node n -m
+    rnnt_tpu_torch.cli.train *args``, its output to ``log_path``; raises
+    when a rank fails or the run outlasts ``timeout`` (its whole process
+    group is killed either way)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           "-m", "rnnt_tpu_torch.cli.train", *args]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=REPO, env=env, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        out = None
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    if out is None:
+        proc.communicate()
+        raise AssertionError(f"{n}-rank cli.train outlasted {timeout} s")
+    log_path.write_text(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"{n}-rank cli.train exited {proc.returncode}:\n"
+                             + "\n".join(out.splitlines()[-40:]))
+
+
+def exchange_worker(n_grad: int, backend: str, hops: int = 200, reps: int = 5) -> None:
+    """One rank of ``exchange_phase`` (run under torch.distributed.run):
+    gloo ranks share cuda:0, NCCL ranks take cuda:LOCAL_RANK; host-timed,
+    each measurement ending on the host.  Ranks 0 and 1 pass the carry
+    rows; rank 0 prints one JSON line."""
+    import torch.distributed as dist
+
+    from rnnt_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh, recv_row, send_row
+
+    dev = torch.device("cuda", 0 if backend == "gloo" else int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://")
+    mesh = make_mesh(1, dist.get_world_size())
+    rank = mesh.rank
+    out = {}
+    for U in (65, 257):
+        row = torch.randn(4, U, device=dev)
+
+        def round_trip(row):
+            if rank == 0:
+                send_row(row, 1, mesh)
+                return recv_row(row, 1, mesh)
+            if rank == 1:
+                row = recv_row(row, 0, mesh)
+                send_row(row, 0, mesh)
+            return row
+
+        for _ in range(10):
+            row = round_trip(row)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(hops):
+            row = round_trip(row)
+        torch.cuda.synchronize()
+        out[f"hop_ms_U{U}"] = (time.perf_counter() - t) / (2 * hops) * 1e3
+    ll = torch.randn(4, device=dev)
+
+    def timed(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    out["ll_all_reduce_ms"] = timed(lambda: all_reduce_sum(ll), hops)
+    flat = torch.randn(n_grad, device=dev)
+    out["grad_all_reduce_ms"] = timed(lambda: all_reduce_sum(flat), reps)
+    out.update(grad_floats=n_grad, backend=backend, ranks=mesh.world)
+    if rank == 0:
+        print(json.dumps({"exchange": out}), flush=True)
+    dist.destroy_process_group()
+
+
+def flagship_params(train: dict) -> int:
+    """The number of parameters (the flat gradient's length) of the train
+    phase's flagship configuration, pruned loss heads included."""
+    from rnnt_tpu_torch.config.config import (
+        apply_overrides, build_model_spec, load_config, resolve_config)
+    from rnnt_tpu_torch.models.rnnt import rnnt_init
+
+    cfg = apply_overrides(load_config(resolve_config(train["config"])),
+                          train["overrides"] + [f"tokenizer.vocab_json={train['vocab']}"])
+    return sum(p.numel() for p in rnnt_init(build_model_spec(cfg)).parameters())
+
+
+def exchange_phase(workdir: Path, n_grad: int, ranks: int = 2, backend: str = "gloo") -> dict:
+    """What the multi-rank layer's transport costs: one (4, U) carry row per
+    hop between ranks 0 and 1 (U = 65 and 257; over gloo through pinned
+    host memory), the (4,) log-likelihood all-reduce, and the flat gradient
+    all-reduce of ``n_grad`` float32 values; gloo ranks share this card,
+    NCCL ranks take one card each."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(ranks),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           str(REPO / "chip_smoke.py"), "--exchange", str(n_grad),
+           "--exchange-backend", backend]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=RANK_TIMEOUT)
+    (workdir / "exchange.log").write_text(out.stdout + out.stderr)
+    line = next((x for x in out.stdout.splitlines() if x.startswith('{"exchange"')), None)
+    if out.returncode != 0 or line is None:
+        raise AssertionError(f"exchange phase exited {out.returncode}:\n"
+                             + "\n".join((out.stdout + out.stderr).splitlines()[-30:]))
+    res = json.loads(line)["exchange"]
+    where = "this card" if backend == "gloo" else "a card each"
+    log(f"{backend} between {ranks} ranks on {where}: one carry row per hop "
+        f"{res['hop_ms_U65']:.4f} ms (4 x 65) / {res['hop_ms_U257']:.4f} ms (4 x 257), "
+        f"the (4,) ll all-reduce {res['ll_all_reduce_ms']:.4f} ms, the flat gradient "
+        f"all-reduce of {n_grad:,} floats {res['grad_all_reduce_ms']:.1f} ms")
+    return res
+
+
+def other_card_phase(card: int) -> None:
+    """K1-K7 on tensors of ``cuda:card`` while cuda:0 stays the current
+    device: each launch must run on its tensors' card, and agree there with
+    its plain version (the stated tolerances)."""
+    from rnnt_tpu_torch.ops.lattice_pallas import (
+        alpha_chain_forward, alpha_chain_plain, alpha_forward, alpha_plain, beta_backward,
+        beta_chain_backward, beta_chain_plain, beta_plain)
+    from rnnt_tpu_torch.ops.transducer import NEG
+    from rnnt_tpu_torch.ops.transducer_pallas import (
+        fused_joint_backward, fused_joint_bwd_plain, fused_joint_outputs,
+        fused_joint_outputs_plain)
+    from rnnt_tpu_torch.ops.window_gather import gather_windows, gather_windows_plain
+
+    dev = torch.device("cuda", card)
+    if torch.cuda.current_device() == card:
+        raise AssertionError(f"cuda:{card} must not be the current device here")
+    args = k1_inputs(B=2, T=33, U1=17, H=1024, V=1024, device=dev)
+    lse, *_ = outs = fused_joint_outputs(*args)
+    for n, g, w in zip(("lse", "blank", "label"), outs, fused_joint_outputs_plain(*args)):
+        check_close(f"cuda:{card} K1 {n}", g, w, **K1_TOL)
+    cot = [torch.randn_like(lse) * 0.3 for _ in range(2)]
+    cot = (lse, cot[0], cot[1], -(cot[0] + cot[1]))
+    for n, x, y in zip(("denc", "dpred", "dW", "db"), fused_joint_backward(*args, *cot),
+                       fused_joint_bwd_plain(*args, *cot)):
+        if not rel_l2(x, y) <= K2_REL_L2:
+            raise AssertionError(f"cuda:{card} K2 {n}: relative L2 {rel_l2(x, y):.3e}")
+    lpb, lpl, t_lens, u_lens = k3_inputs(B=4, T=64, U1=17, device=dev)
+    nll, alpha = alpha_forward(lpb, lpl, t_lens, u_lens)
+    check_k3(nll, alpha, *alpha_plain(lpb, lpl, t_lens, u_lens), t_lens, u_lens)
+    g = torch.ones_like(nll)
+    for n, x, y in zip(("glpb", "glpl"), beta_backward(lpb, lpl, alpha, t_lens, u_lens, nll, g),
+                       beta_plain(lpb, lpl, alpha, t_lens, u_lens, nll, g)):
+        check_close(f"cuda:{card} K4 {n}", x, y, **K4_TOL)
+    b, lb = lpb[:, 32:].contiguous(), lpl[:, 32:].contiguous()
+    carry = torch.full((4, 17), NEG, device=dev)
+    got = alpha_chain_forward(b, lb, t_lens, u_lens, 32, alpha[:, 31] + lpb[:, 31])
+    want = alpha_chain_plain(b, lb, t_lens, u_lens, 32, alpha[:, 31] + lpb[:, 31])
+    check_live(f"cuda:{card} K6 alpha", got[0], want[0], K3_TOL)
+    ll = -nll
+    for n, x, y in zip(("glpb", "glpl"),
+                       beta_chain_backward(b, lb, got[0], t_lens, u_lens, ll, g, 32, carry),
+                       beta_chain_plain(b, lb, got[0], t_lens, u_lens, ll, g, 32, carry)):
+        check_close(f"cuda:{card} K7 {n}", x, y, **K4_TOL)
+    x = torch.randn(3, 5000, device=dev)
+    starts = torch.randint(-100, 5100, (3, 37), dtype=torch.int32, device=dev)
+    if not torch.equal(gather_windows(x, starts, 256), gather_windows_plain(x, starts, 256)):
+        raise AssertionError(f"cuda:{card} K5 differs from its plain version")
+    torch.cuda.synchronize(dev)
+    log(f"cuda:{card} (cuda:0 current): K1-K7 launched on the tensors' card and agree "
+        "with their plain versions")
+
+
+def _latest_run(exp: Path, model_name: str) -> Path:
+    return max((exp / model_name).glob("run-*"), key=lambda p: int(p.name[4:]))
+
+
+def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1) -> dict:
+    """The multi-rank layer through ``torch.distributed.run`` and cli.train,
+    full-width ``base_convjs`` with the YAML's data settings (corpus cached
+    on each rank's card, ``augment_device: full``: K5 on every rank), 2
+    steps each, against the same config on 1 rank in this process.  On one
+    card 2 ranks share it over gloo (``--device cuda:0 --dist-backend
+    gloo``); with ``cards`` > 1, one rank per card over NCCL (``--device
+    cuda``, each rank on ``cuda:LOCAL_RANK``).
+
+    * T-sharded: ``lattice_shard_t=true``, ``mesh.model=2`` and
+      ``mesh.data=cards // 2`` (at least 1), with ``loss_impl=auto`` (the
+      T-sharded loss takes the chunked joint whatever the loss_impl, as in
+      the reference, while rank 0's eval scores the exact NLL through K1 +
+      K3), against 1 rank with ``loss_impl=chunked`` (the chunked joint, K3
+      and K4 on the whole lattice): K6 and K7 once per step on each rank,
+      K3 and K4 never;
+    * data-parallel flagship: ``mesh.data`` = the ranks, the pruned loss
+      with 1 warmup step and 1 banded step, against 1 rank: K1-K5 on each
+      rank in each step.
+
+    Each step's loss and gradient norm must agree within TSHARD_RTOL /
+    DP_RTOL; metrics.jsonl (rank 0's) is read once per run."""
+    from rnnt_tpu_torch.cli import train as cli_train
+    from rnnt_tpu_torch.config.config import load_config, resolve_config
+
+    model_name = load_config(resolve_config(train["config"])).model_name
+    exp = workdir / "exp_ranks"
+    base = ["--config", train["config"], "--output-base", str(exp), "--max-steps", "2"]
+    for o in train["overrides"] + [f"tokenizer.vocab_json={train['vocab']}"]:
+        base += ["--set", o]
+    on_card = torch.device(device).type == "cuda"
+    n = max(cards, 2)
+    ranks = (["--device", "cpu"] if not on_card
+             else ["--device", "cuda:0", "--dist-backend", "gloo"] if cards == 1
+             else ["--device", "cuda"])
+    if on_card:
+        torch.cuda.empty_cache()
+    out = {}
+    for key, many, one, rtol, expect in (
+            ("tshard",
+             ["--set", "training.loss_impl=auto", "--set", "training.lattice_shard_t=true",
+              "--set", "mesh.model=2", "--set", f"mesh.data={n // 2}"],
+             ["--set", "training.loss_impl=chunked"], TSHARD_RTOL,
+             dict(alpha_chain=1, beta_chain=1, alpha_fwd=0, beta_bwd=0, joint_fwd=0,
+                  joint_bwd=0, window_gather=4)),
+            ("data_parallel",
+             ["--set", "training.pruned_warmup_steps=1", "--set", f"mesh.data={n}"],
+             ["--set", "training.pruned_warmup_steps=1"], DP_RTOL,
+             dict(joint_fwd=None, joint_bwd=None, alpha_fwd=None, beta_bwd=None,
+                  window_gather=4, alpha_chain=0, beta_chain=0))):
+        t = time.time()
+        run_ranks(n, base + many + ranks, workdir / f"{key}_ranks.log")
+        secs = time.time() - t
+        run2 = _latest_run(exp, model_name)
+        steps2 = _read_steps(run2)
+        records = [json.loads(x) for x in (run2 / "metrics.jsonl").read_text().splitlines()]
+        evals = [r for r in records if "wer/eval" in r]
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_train.main(base + one + ["--device", str(device)])
+        steps1 = _read_steps(_latest_run(exp, model_name))
+        if [s["step"] for s in steps2] != [1, 2] or [s["step"] for s in steps1] != [1, 2]:
+            raise AssertionError(f"{key}: steps {steps2} / {steps1}")
+        gaps = []
+        for s2, s1 in zip(steps2, steps1):
+            gap = {k: abs(s2[k] - s1[k]) / abs(s1[k]) for k in ("loss", "grad_norm")}
+            gaps.append(gap)
+            log(f"  {key} step {s2['step']}: {n} ranks loss {s2['loss']:.6f} grad norm "
+                f"{s2['grad_norm']:.6f} ({s2['seconds']:.3f} s, {s2['audio_s_per_s']:.2f} "
+                f"audio-s/s); 1 rank {s1['loss']:.6f} / {s1['grad_norm']:.6f}; relative "
+                f"gaps {gap['loss']:.2e} / {gap['grad_norm']:.2e}; launches per rank "
+                f"{s2['by_rank']}")
+            bad = [k for k in gap if not gap[k] <= rtol[k]]
+            if bad or not (math.isfinite(s2["loss"]) and math.isfinite(s2["grad_norm"])):
+                raise AssertionError(f"{key} step {s2['step']}: {n} ranks {s2} vs 1 rank {s1}, "
+                                     f"relative gaps {gap} over {rtol}")
+            for name, want in expect.items() if on_card else ():
+                got = s2["by_rank"].get(name)
+                if got is None or len(got) != n or any(
+                        (c == 0) if want is None else (c != want) for c in got):
+                    raise AssertionError(f"{key} step {s2['step']}: {name} launched "
+                                         f"{got} times on the {n} ranks, expected "
+                                         f"{'some' if want is None else want} on each")
+        if len(evals) != 1 or not math.isfinite(evals[0]["wer/eval"]):
+            raise AssertionError(f"{key}: rank 0's evals {evals}")
+        ev = {k.split("/", 1)[1]: n for k, n in evals[0].items()
+              if k.startswith("eval_launches/")}
+        if on_card and key == "tshard" and not (ev.get("joint_fwd") and ev.get("alpha_fwd")):
+            raise AssertionError(f"tshard: rank 0's eval launched {ev}, expected K1 and K3")
+        log(f"{key}: {n} ranks in {secs:.1f} s (start-up, cache, 2 steps, rank 0's eval); "
+            f"metrics.jsonl steps {[s['step'] for s in steps2]}, rank 0's eval WER "
+            f"{evals[0]['wer/eval']:.4f} with launches {ev}")
+        out[key] = dict(steps2=steps2, steps1=steps1, gaps=gaps, seconds=secs,
+                        eval_launches=ev)
+    return out
 
 
 def _train_setup(device, train: dict):
@@ -1119,13 +1576,52 @@ def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
                  kind=kind)
 
 
+def multi_card_main(cards: int, smi: str) -> None:
+    """``--cards N``: the multi-rank layer across N cards of this machine,
+    one rank per card over NCCL; prints a ``{"multi_card": ...}`` line."""
+    if torch.cuda.device_count() < cards or cards < 2:
+        sys.exit(f"chip_smoke: --cards {cards} needs 2 or more cards, this machine has "
+                 f"{torch.cuda.device_count()}")
+    from rnnt_tpu_torch.data.dataset import synthetic_piece_table
+
+    t0 = time.time()
+    for card in range(1, cards):
+        other_card_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "train_vocab.json"
+        vocab.write_text(json.dumps(synthetic_piece_table()))
+        train = dict(config="base_convjs", overrides=list(TRAIN_OVERRIDES), vocab=vocab)
+        ranks = multi_rank_phase(Path(tmp), torch.device("cuda"), train, cards=cards)
+        exchange = exchange_phase(Path(tmp), flagship_params(train), ranks=cards,
+                                  backend="nccl")
+    log(f"total {time.time() - t0:.1f} s")
+    print(smi.strip())
+    print(json.dumps({"multi_card": dict(
+        exchange=exchange, **{key: dict(gaps=r["gaps"], eval_launches=r["eval_launches"],
+                                        steps=[{k: s[k] for k in ("step", "loss", "grad_norm",
+                                                                  "seconds", "by_rank")}
+                                               for s in r["steps2"]])
+                              for key, r in ranks.items()})}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one card")
+    ap.add_argument("--exchange", metavar="N_GRAD", type=int, default=None,
+                    help=argparse.SUPPRESS)  # one rank of exchange_phase
+    ap.add_argument("--exchange-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--cards", type=int, default=None,
+                    help="instead of the one-card run: the multi-rank layer on N cards "
+                         "of this machine, one rank per card over NCCL (K1-K7 on each "
+                         "other card, the T-sharded and data-parallel steps against 1 "
+                         "rank, NCCL's transport costs)")
     ap.add_argument("--profile", metavar="DIR", type=Path, default=None,
                     help="also trace two eval batches and three train steps with "
                          "torch.profiler, print device time by kernel and the idle "
                          "share, and write DIR/{eval,train}_trace.json.gz")
     args = ap.parse_args()
+    if args.exchange is not None:
+        sys.path.insert(0, str(REPO))
+        return exchange_worker(args.exchange, args.exchange_backend)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs an NVIDIA card")
     if not (REPO / "rnnt_tpu_torch" / "csrc").is_dir():
@@ -1135,7 +1631,7 @@ def main() -> None:
     from rnnt_tpu_torch.config.config import (
         build_featurizer_spec, load_config, resolve_config)
     from rnnt_tpu_torch.ops.kernels import build_all
-    from rnnt_tpu_torch.ops.lattice_pallas import K3, K4
+    from rnnt_tpu_torch.ops.lattice_pallas import K3, K4, K6, K7
     from rnnt_tpu_torch.ops.transducer_pallas import K1, K2
     from rnnt_tpu_torch.ops.window_gather import K5
 
@@ -1151,17 +1647,20 @@ def main() -> None:
 
     t0 = time.time()
     kernels = [K1, K2, K3, K4, K5]
-    secs = build_all(kernels)
-    log(f"built {[k.name for k in kernels]} in {secs:.1f} s")
-    for k in kernels:
+    secs = build_all(kernels + [K6, K7])  # once, before any rank starts
+    log(f"built {[k.name for k in kernels + [K6, K7]]} in {secs:.1f} s")
+    for k in kernels + [K6, K7]:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k.name}: {line.strip()}")
+    if args.cards is not None:
+        return multi_card_main(args.cards, smi)
 
     # The flagship bucket the synthetic 10 s utterances land in: 1024 frames.
     L = build_featurizer_spec(load_config(resolve_config("base_convjs"))).samples_for_frames(1024)
     measured = kernel_phase(device)
     measured.update(train_kernel_phase(device))
+    chain = chain_kernel_phase(device)
     measured["K5"] = k5_phase(device, L)
     augment = augment_phase(device, K5, L)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1171,6 +1670,8 @@ def main() -> None:
         del path["model"]
         train = train_phase(Path(tmp), device, kernels)
         grad_phase(device, kernels, train)
+        ranks = multi_rank_phase(Path(tmp), device, train)
+        ranks["exchange"] = exchange_phase(Path(tmp), flagship_params(train))
         if args.profile is not None:
             profile_train_phase(device, train, args.profile)
             profile_train_phase(device, train, args.profile, device_augment="full")
@@ -1197,8 +1698,31 @@ def main() -> None:
                           else "no single PyTorch call computes this function"),
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
+    tsteps = ranks["tshard"]["steps2"]
+    for key, k, plain in (("K6", K6, "k6"), ("K7", K7, "k7")):
+        ev, lg = chain["eval"], chain["long"]
+        by_rank = [s["by_rank"][k.name] for s in tsteps]
+        entries.append(dict(
+            name=f"{key} {k.name}", route="cuda", source=f"rnnt_tpu_torch/csrc/{k.name}.cu",
+            replaces=k.replaces, launches=sum(map(sum, by_rank)),
+            launches_per_step={"tshard (per rank)": by_rank},
+            max_abs_err=max(ev[f"err{key[1]}"], lg[f"err{key[1]}"]),
+            ms=statistics.mean(m[f"{plain}_ms"] for m in ev["shards"]),
+            plain_ms=statistics.mean(m[f"{plain}_plain_ms"] for m in ev["shards"]),
+            bound_ms=statistics.mean(m[f"{plain}_bound_ms"] for m in ev["shards"]),
+            bound_by=ev["shards"][0][f"{plain}_bound_by"], library_ms=None,
+            library_note="no single PyTorch call computes this function",
+            shape=ev["shape"] + "; ms, plain_ms and bound_ms are means over the shards",
+            shards={tag: c["shards"] for tag, c in chain.items()},
+            chain={tag: c["chain"] for tag, c in chain.items()}, long_case=lg["shape"]))
+    multi = {key: dict(gaps=r["gaps"], seconds=r["seconds"], eval_launches=r["eval_launches"],
+                       steps=[{k: s[k] for k in ("step", "loss", "grad_norm", "seconds")}
+                              for s in r["steps2"]])
+             for key, r in ranks.items() if key != "exchange"}
+    multi["exchange"] = ranks["exchange"]
     log(f"total {time.time() - t0:.1f} s")
     print(card)
+    print(json.dumps({"multi_rank": multi}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

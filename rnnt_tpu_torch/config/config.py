@@ -4,8 +4,9 @@ The port's own copy of ``rnnt_tpu/config/config.py``: the same dataclass
 schema, ``load_config``, Hydra-style ``apply_overrides``, and the spec
 builders, returning the port's spec classes.  It reads the same YAML files
 (``rnnt_tpu/config/configs/*.yaml``) as data and never edits them.  Fields
-that select paths not ported yet (LSTM predictor, augmentation, device
-staging, meshes) are kept so that every config parses and builds the same spec.
+that select paths not ported yet (the LSTM predictor) are kept so that
+every config parses and builds the same spec; ``check_mesh`` holds the
+guards of a multi-rank run.
 """
 
 from __future__ import annotations
@@ -306,6 +307,21 @@ def config_to_dict(cfg: Config) -> dict:
 def save_config(cfg: Config, path: str | Path) -> None:
     with open(path, "w") as f:
         yaml.safe_dump(config_to_dict(cfg), f, sort_keys=False)
+
+
+def check_mesh(cfg: Config, data: int, model: int) -> None:
+    """The training guards of a data x model mesh: ``lattice_shard_t``
+    needs a ``model`` axis to shard T over, and the global batch must split
+    evenly over the ``data`` axis (the reference shrinks the data axis
+    until it divides, ``rnnt_tpu/train/loop.py:158-164``; the port says
+    so instead of training on another layout)."""
+    if cfg.training.lattice_shard_t and model == 1:
+        raise ValueError("training.lattice_shard_t shards the lattice's T axis "
+                         "over mesh.model ranks; mesh.model is 1")
+    if cfg.training.global_batch_size % data:
+        raise ValueError(f"training.global_batch_size="
+                         f"{cfg.training.global_batch_size} does not divide "
+                         f"over mesh.data={data} ranks")
 
 
 def build_featurizer_spec(cfg: Config) -> FeaturizerSpec:

@@ -32,6 +32,7 @@ from rnnt_tpu_torch.ops.causal_conv import (
     causal_conv_out_len,
 )
 from rnnt_tpu_torch.ops.norm import Norm
+from rnnt_tpu_torch.utils import batch_draw
 
 
 @dataclass(frozen=True)
@@ -101,14 +102,16 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     """Inverted dropout with the JAX package's uint16 threshold mask: keep
     where 16 random bits < round((1 - rate) * 65536), rescale by that
     quantized keep share, so E[y] = x exactly.  The bits come from
-    ``generator`` (on x's device); they cannot equal JAX's.  An identity
-    outside training, at rate 0, or without a generator."""
+    ``generator`` (on x's device; a ``RowGenerator`` draws them at the
+    global batch's shape); they cannot equal JAX's.  An identity outside
+    training, at rate 0, or without a generator."""
     if not training or rate == 0.0 or generator is None:
         return x
     thresh = int(round((1.0 - rate) * 65536.0))
     keep = thresh / 65536.0
-    bits = torch.randint(0, 65536, x.shape, generator=generator,
-                         device=x.device, dtype=torch.int32)
+    bits = batch_draw(generator, x.shape[0], lambda g, n: torch.randint(
+        0, 65536, (n, *x.shape[1:]), generator=g, device=x.device,
+        dtype=torch.int32))
     return torch.where(bits < thresh, x * (1.0 / keep),
                        torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
 

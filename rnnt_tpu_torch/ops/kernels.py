@@ -9,7 +9,9 @@ once.  Nothing is built when a module is imported: the first launch (or
 ``build_all``) builds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers raise when it is not 0.
+wrappers raise when it is not 0.  A launch runs on the device its tensors
+lie on (that device made current, its current stream), so a rank whose
+card is ``cuda:1`` launches there, whatever device is current.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # the sources' shared headers
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -84,10 +88,19 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        """Call the C entry point on the current stream; raise on a CUDA
+        """Call the C entry point with ``args`` (tensors become their data
+        pointers; every tensor must lie on one CUDA device) on that
+        device's current stream, with that device current; raise on a CUDA
         error; count the launch."""
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        err = self.fn()(*args, stream)
+        devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+        if len(devices) != 1:
+            raise ValueError(f"{self.name}: tensors on {sorted(map(str, devices))}, "
+                             "expected one CUDA device")
+        (dev,) = devices
+        c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
+        with torch.cuda.device(dev):
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+            err = self.fn()(*c_args, stream)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
         self.launches += 1

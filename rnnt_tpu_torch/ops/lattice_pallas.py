@@ -1,12 +1,18 @@
 """K3 and K4: the alpha and beta lattice recursions as hand-written CUDA
-kernels, and the lattice NLL as a ``torch.autograd.Function`` over them.
+kernels, and the lattice NLL as a ``torch.autograd.Function`` over them;
+K6 and K7: the same recursions on one T-shard of the lattice, the stages of
+the sequence-parallel chain (ops/lattice_tshard.py).
 
 K3 replaces ``rnnt_tpu/ops/lattice_pallas.py:120`` ``_alpha_kernel``
 (launcher ``_alpha_pallas:170``, call ``:178``); K4 replaces ``:353``
 ``_beta_kernel`` (launcher ``_beta_pallas:397``, call ``:408``).  The module
 keeps the reference's name so the two packages line up file by file; the
 kernels are CUDA C++ in ``csrc/alpha_fwd.cu`` and ``csrc/beta_bwd.cu``,
-built for sm_90a by ``ops/kernels.py``.
+built for sm_90a by ``ops/kernels.py``.  K6 replaces ``:204``
+``_alpha_chain_kernel`` (``_alpha_chain_pallas:247``, call ``:256``) and K7
+``:272`` ``_beta_chain_kernel`` (``_beta_chain_pallas:321``, call ``:335``);
+they are ``csrc/alpha_chain.cu`` and ``csrc/beta_chain.cu``, which share
+their row scans with K3 and K4 through ``csrc/lattice_rows.cuh``.
 
 Bound on an H100: latency.  At the eval shape (B 4, T' 504, U+1 65) K3
 moves ~1.6 MB and K4 ~2.6 MB — about 0.5 and 0.8 us at 3.35 TB/s — but
@@ -14,11 +20,13 @@ each runs 504 dependent rows, each a log-semiring scan over U.  Both use
 one warp per sample, shuffle scans and the next row prefetched into
 registers; see the sources.
 
-``alpha_plain`` and ``beta_plain`` are the same functions in plain
-PyTorch (the CPU path and the card-side yardsticks).  ``alpha_forward`` and
-``beta_backward`` take the plain versions only for CPU tensors; for CUDA
-tensors they launch the kernels or raise.  ``K3.launches`` and
-``K4.launches`` count launches.  ``transducer_alpha_loss_fast`` is K3
+``alpha_plain``, ``beta_plain``, ``alpha_chain_plain`` and
+``beta_chain_plain`` are the same functions in plain PyTorch (the CPU path
+and the card-side yardsticks; K4's is K7's on the whole lattice, and K3's
+and K6's share ``transducer_alpha``).  ``alpha_forward``, ``beta_backward``, ``alpha_chain_forward`` and
+``beta_chain_backward`` take the plain versions only for CPU tensors; for
+CUDA tensors they launch the kernels or raise.  ``K3.launches`` ..
+``K7.launches`` count launches.  ``transducer_alpha_loss_fast`` is K3
 forward (saving alpha and the losses) with K4 as its backward, as
 ``_fast_fwd`` / ``_fast_bwd`` are in the reference; no B, T or U padding.
 """
@@ -29,8 +37,9 @@ import ctypes
 
 import torch
 
-from rnnt_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor, ptr
-from rnnt_tpu_torch.ops.transducer import NEG, _lse, final_nll, transducer_alpha
+from rnnt_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor
+from rnnt_tpu_torch.ops.transducer import (
+    NEG, _at_least_f32, _lse, final_nll, transducer_alpha)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +50,35 @@ K4 = CudaKernel(
     "beta_bwd", "rnnt_beta_bwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     replaces="rnnt_tpu/ops/lattice_pallas.py:353 _beta_kernel")
+K6 = CudaKernel(
+    "alpha_chain", "rnnt_alpha_chain",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    replaces="rnnt_tpu/ops/lattice_pallas.py:204 _alpha_chain_kernel")
+K7 = CudaKernel(
+    "beta_chain", "rnnt_beta_chain",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    replaces="rnnt_tpu/ops/lattice_pallas.py:272 _beta_chain_kernel")
 U_MAX = 1024
+
+
+def alpha_chain_plain(lp_blank, lp_label, t_lens, u_lens, t0: int, carry_in):
+    """(alphas (B, T, U), ll_part (B,), carry_out (B, U)) of one T-shard in
+    plain PyTorch, float32 (float64 for float64 inputs).
+
+    The shard's rows sit at global rows t0 .. t0 + T - 1; the first takes
+    carry_in (the previous shard's carry_out) unless it is global row 0
+    (``transducer_alpha``).  ll_part is alpha + lp_blank at (t_len - 1,
+    u_len) for the samples whose row t_len - 1 the shard holds, 0 for the
+    others; carry_out is alpha + lp_blank of the last row."""
+    alphas = transducer_alpha(lp_blank, lp_label, t0, carry_in)
+    lp_blank = _at_least_f32(lp_blank)
+    B, T, _ = alphas.shape
+    row = t_lens.long() - 1 - t0  # the local row of t_len - 1
+    held = (row >= 0) & (row < T)
+    b = torch.arange(B, device=alphas.device)
+    at = row.clamp(0, T - 1), u_lens.long()
+    ll = torch.where(held, alphas[b, at[0], at[1]] + lp_blank[b, at[0], at[1]], 0.0)
+    return alphas, ll, alphas[:, -1] + lp_blank[:, -1]
 
 
 def alpha_plain(lp_blank, lp_label, t_lens, u_lens):
@@ -75,9 +112,36 @@ def alpha_forward(lp_blank: torch.Tensor, lp_label: torch.Tensor,
     B, T, U = lp_blank.shape
     alphas = torch.empty_like(lp_blank)
     nll = torch.empty((B,), dtype=torch.float32, device=lp_blank.device)
-    K3.launch(ptr(lp_blank), ptr(lp_label), ptr(t_lens), ptr(u_lens),
-              ptr(alphas), ptr(nll), B, T, U)
+    K3.launch(lp_blank, lp_label, t_lens, u_lens, alphas, nll, B, T, U)
     return nll, alphas
+
+
+def _check_t0(name, t0) -> int:
+    if not (isinstance(t0, int) and t0 >= 0):
+        raise ValueError(f"{name} takes a global row offset t0 >= 0, got {t0!r}")
+    return t0
+
+
+def alpha_chain_forward(lp_blank, lp_label, t_lens, u_lens, t0: int, carry_in):
+    """(alphas (B, T, U), ll_part (B,), carry_out (B, U)) of one T-shard at
+    global row offset ``t0`` (see ``alpha_chain_plain``).  Inputs as
+    ``alpha_forward`` takes them (t_len >= 1, possibly past this shard) plus
+    carry_in (B, U) float32."""
+    t0 = _check_t0("K6", t0)
+    if lp_blank.device.type == "cpu":
+        return alpha_chain_plain(lp_blank, lp_label, t_lens, u_lens, t0, carry_in)
+    if lp_blank.device.type != "cuda":
+        raise ValueError(f"K6 runs on CUDA or the CPU, got {lp_blank.device}")
+    _check_lattice("K6", lp_blank, lp_label, t_lens, u_lens)
+    B, T, U = lp_blank.shape
+    dev = lp_blank.device
+    check_cuda_tensor("carry_in", carry_in, torch.float32, (B, U), dev)
+    alphas = torch.empty_like(lp_blank)
+    ll = torch.empty((B,), dtype=torch.float32, device=dev)
+    carry_out = torch.empty_like(carry_in)
+    K6.launch(lp_blank, lp_label, t_lens, u_lens, carry_in, alphas, ll,
+              carry_out, B, T, U, t0)
+    return alphas, ll, carry_out
 
 
 def suffix_row_scan(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -97,36 +161,51 @@ def suffix_row_scan(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return bv
 
 
-def beta_plain(lp_blank, lp_label, alphas, t_lens, u_lens, nll, g):
-    """(glp_blank, glp_label), both (B, T, U), in plain PyTorch: the beta
-    recursion in reverse T (a suffix scan over U per row), emitting
-    -g * exp(alpha + lp + beta - ll) per edge with ll = -nll, masked inside
-    the exponent for t >= t_len.  Computes in the dtype of ``alphas``
-    (float32, or float64)."""
+def beta_chain_plain(lp_blank, lp_label, alphas, t_lens, u_lens, ll, g,
+                     t0: int, carry_in):
+    """(glp_blank, glp_label (B, T, U), carry_out (B, U)) of one T-shard in
+    plain PyTorch: the beta recursion in reverse over the shard's rows
+    (global rows t0 .. t0 + T - 1; a suffix scan over U per row) from
+    beta_next = the seed (0 at u_len) at global t == t_len - 1, else the
+    carry (carry_in, the next shard's carry_out, below the last row),
+    emitting -g * exp(alpha + lp + beta - ll) per edge with ll the
+    log-likelihood, masked inside the exponent for t >= t_len.  carry_out
+    is beta at the shard's first row, NEG for the samples with t_len <= t0.
+    Computes in the dtype of ``alphas`` (float32, or float64)."""
     dt = alphas.dtype
     lp_blank, lp_label = lp_blank.to(dt), lp_label.to(dt)
     B, T, U = lp_blank.shape
     dev = lp_blank.device
     t_lens = t_lens.long()
-    ll = (-nll.to(dt))[:, None]
+    llc = ll.to(dt)[:, None]
     gg = g.to(dt)[:, None]
     seed = torch.where(torch.arange(U, device=dev)[None, :] == u_lens.long()[:, None],
                        0.0, NEG).to(dt)
     glpb = torch.empty_like(lp_blank)
     glpl = torch.empty_like(lp_blank)
-    carry = torch.full((B, U), NEG, dtype=dt, device=dev)
+    carry = carry_in.to(dt)
     neg_col = torch.full((B, 1), NEG, dtype=dt, device=dev)
-    for t in reversed(range(T)):
+    for r in reversed(range(T)):
+        t = t0 + r
         beta_next = torch.where((t == t_lens - 1)[:, None], seed, carry)
-        beta = suffix_row_scan(lp_blank[:, t] + beta_next, lp_label[:, t])
+        beta = suffix_row_scan(lp_blank[:, r] + beta_next, lp_label[:, r])
         beta_up = torch.cat([beta[:, 1:], neg_col], dim=1)
         valid = (t < t_lens)[:, None]
-        glpb[:, t] = -gg * torch.exp(torch.where(
-            valid, alphas[:, t] + lp_blank[:, t] + beta_next - ll, NEG))
-        glpl[:, t] = -gg * torch.exp(torch.where(
-            valid, alphas[:, t] + lp_label[:, t] + beta_up - ll, NEG))
+        glpb[:, r] = -gg * torch.exp(torch.where(
+            valid, alphas[:, r] + lp_blank[:, r] + beta_next - llc, NEG))
+        glpl[:, r] = -gg * torch.exp(torch.where(
+            valid, alphas[:, r] + lp_label[:, r] + beta_up - llc, NEG))
         carry = beta
-    return glpb, glpl
+    return glpb, glpl, torch.where((t0 < t_lens)[:, None], carry, NEG)
+
+
+def beta_plain(lp_blank, lp_label, alphas, t_lens, u_lens, nll, g):
+    """(glp_blank, glp_label), both (B, T, U), in plain PyTorch: the chain's
+    stage on the whole lattice with ll = -nll."""
+    B, _, U = lp_blank.shape
+    carry = alphas.new_full((B, U), NEG)  # unread: row t_len - 1 takes the seed
+    return beta_chain_plain(lp_blank, lp_label, alphas, t_lens, u_lens, -nll, g,
+                            0, carry)[:2]
 
 
 def beta_backward(lp_blank, lp_label, alphas, t_lens, u_lens, nll, g):
@@ -145,9 +224,36 @@ def beta_backward(lp_blank, lp_label, alphas, t_lens, u_lens, nll, g):
     check_cuda_tensor("g", g, torch.float32, (B,), dev)
     glpb = torch.empty_like(lp_blank)
     glpl = torch.empty_like(lp_blank)
-    K4.launch(ptr(lp_blank), ptr(lp_label), ptr(alphas), ptr(t_lens),
-              ptr(u_lens), ptr(nll), ptr(g), ptr(glpb), ptr(glpl), B, T, U)
+    K4.launch(lp_blank, lp_label, alphas, t_lens, u_lens, nll, g, glpb, glpl,
+              B, T, U)
     return glpb, glpl
+
+
+def beta_chain_backward(lp_blank, lp_label, alphas, t_lens, u_lens, ll, g,
+                        t0: int, carry_in):
+    """(glp_blank, glp_label (B, T, U), carry_out (B, U)) of one T-shard at
+    global row offset ``t0`` (see ``beta_chain_plain``).  Inputs as
+    ``alpha_chain_forward`` takes them plus the shard's alphas, the
+    log-likelihood ll (B,) and the cotangent g (B,) float32."""
+    t0 = _check_t0("K7", t0)
+    if lp_blank.device.type == "cpu":
+        return beta_chain_plain(lp_blank, lp_label, alphas, t_lens, u_lens, ll,
+                                g, t0, carry_in)
+    if lp_blank.device.type != "cuda":
+        raise ValueError(f"K7 runs on CUDA or the CPU, got {lp_blank.device}")
+    _check_lattice("K7", lp_blank, lp_label, t_lens, u_lens)
+    B, T, U = lp_blank.shape
+    dev = lp_blank.device
+    check_cuda_tensor("alphas", alphas, torch.float32, (B, T, U), dev)
+    check_cuda_tensor("ll", ll, torch.float32, (B,), dev)
+    check_cuda_tensor("g", g, torch.float32, (B,), dev)
+    check_cuda_tensor("carry_in", carry_in, torch.float32, (B, U), dev)
+    glpb = torch.empty_like(lp_blank)
+    glpl = torch.empty_like(lp_blank)
+    carry_out = torch.empty_like(carry_in)
+    K7.launch(lp_blank, lp_label, alphas, t_lens, u_lens, ll, g, carry_in,
+              glpb, glpl, carry_out, B, T, U, t0)
+    return glpb, glpl, carry_out
 
 
 def _dp_input(x: torch.Tensor) -> torch.Tensor:

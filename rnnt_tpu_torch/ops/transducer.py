@@ -18,7 +18,8 @@ and the log-sum-exp here is guarded so two log-zeros stay exactly NEG.
 * ``clamp_grads`` — identity forward, the cotangent clamped backward.
 * ``lattice_nll`` — the differentiable lattice NLL (ops/lattice_pallas.py):
   K3 forward and K4 backward for CUDA tensors, the plain alpha and beta for
-  CPU tensors.
+  CPU tensors; with a mesh whose ``model`` axis is larger than 1, the
+  T-sharded chain over the model group (ops/lattice_tshard.py, K6 and K7).
 """
 
 from __future__ import annotations
@@ -80,15 +81,21 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
-def transducer_alpha(lp_blank: torch.Tensor, lp_label: torch.Tensor) -> torch.Tensor:
+def transducer_alpha(lp_blank: torch.Tensor, lp_label: torch.Tensor,
+                     t0: int = 0, carry: torch.Tensor | None = None) -> torch.Tensor:
     """alpha (B, T, U+1): alpha[t, u] = LSE(alpha[t-1, u] + lp_blank[t-1, u],
     alpha[t, u-1] + lp_label[t, u-1]), alpha[0, 0] = 0; float32, or float64
-    for float64 inputs."""
+    for float64 inputs.  On one T-shard of a longer lattice
+    (ops/lattice_tshard.py) whose rows start at global row ``t0 > 0``, the
+    first row takes ``carry`` (alpha + lp_blank of global row t0 - 1) in
+    place of the seed."""
     lp_blank = _at_least_f32(lp_blank)
     lp_label = _at_least_f32(lp_label)
     B, T, U1 = lp_blank.shape
     c = torch.full((B, U1), NEG, dtype=lp_blank.dtype, device=lp_blank.device)
     c[:, 0] = 0.0
+    if t0 > 0:
+        c = carry.to(lp_blank.dtype)
     rows = []
     for t in range(T):
         if t > 0:
@@ -111,10 +118,18 @@ def transducer_alpha_loss(lp_blank, lp_label, t_lens, u_lens) -> torch.Tensor:
                      t_lens, u_lens)
 
 
-def lattice_nll(lp_blank, lp_label, t_lens, u_lens) -> torch.Tensor:
+def lattice_nll(lp_blank, lp_label, t_lens, u_lens, mesh=None) -> torch.Tensor:
     """Per-sample NLL, differentiable in the log-probs: K3 forward and K4
-    backward for CUDA tensors, the plain alpha and beta for CPU tensors."""
+    backward for CUDA tensors, the plain alpha and beta for CPU tensors.
+    A ``mesh`` (parallel/mesh.py) with ``model > 1`` selects the T-sharded
+    chain instead (the reference's ``:153-159``): every rank passes the
+    whole lattice and back-propagates its own block of rows."""
     from rnnt_tpu_torch.ops.lattice_pallas import LatticeNLL
+
+    if mesh is not None and mesh.model > 1:
+        from rnnt_tpu_torch.ops.lattice_tshard import transducer_alpha_loss_tsharded
+
+        return transducer_alpha_loss_tsharded(lp_blank, lp_label, t_lens, u_lens, mesh)
 
     return LatticeNLL.apply(
         lp_blank.float().contiguous(), lp_label.float().contiguous(),
@@ -169,15 +184,19 @@ def _joint_chunk_log_probs(w, b, enc_chunk, text, tgt, u_mask, blank: int,
 def joint_lattice_log_probs(joint, audio: torch.Tensor, text: torch.Tensor,
                             targets: torch.Tensor, u_lens: torch.Tensor,
                             blank: int, chunk_size: int = 32,
-                            grad_clamp: float = -1.0):
+                            grad_clamp: float = -1.0, t_rows: slice | None = None):
     """(lp_blank, lp_label), both (B, T, U+1) f32, from the joint evaluated
     ``chunk_size`` frames at a time.  audio (B, T, H) and text (B, U+1, H)
-    are the encoder and predictor outputs; targets (B, U) label ids.  When
-    autograd records, each chunk runs under ``torch.utils.checkpoint`` so
-    its (B, chunk, U+1, V) logits are recomputed in backward, not kept."""
+    are the encoder and predictor outputs; targets (B, U) label ids;
+    ``t_rows`` keeps only those frames of the projected audio (a T-sharded
+    rank's block).  When autograd records, each chunk runs under
+    ``torch.utils.checkpoint`` so its (B, chunk, U+1, V) logits are
+    recomputed in backward, not kept."""
     from rnnt_tpu_torch.models.joint import project_sides
 
     audio, text = project_sides(joint, audio, text)
+    if t_rows is not None:
+        audio = audio[:, t_rows]
     B, T, _ = audio.shape
     U1 = text.shape[1]
     tgt = torch.cat([targets, targets.new_zeros((B, 1))], dim=1).long()
@@ -207,9 +226,24 @@ def reduce_losses(losses: torch.Tensor, reduction: str) -> torch.Tensor:
 
 def transducer_loss(joint, audio, text, targets, t_lens, u_lens, blank: int,
                     *, chunk_size: int = 32, reduction: str = "mean",
-                    grad_clamp: float = -1.0):
-    """Chunked joint + transducer NLL."""
-    lp_blank, lp_label = joint_lattice_log_probs(
-        joint, audio, text, targets, u_lens, blank, chunk_size, grad_clamp)
-    return reduce_losses(lattice_nll(lp_blank, lp_label, t_lens, u_lens),
+                    grad_clamp: float = -1.0, mesh=None):
+    """Chunked joint + transducer NLL.  With a ``mesh`` whose ``model``
+    axis is larger than 1, this rank runs the joint on its block of T rows
+    only (the reference's ``:208-215`` slicing) and the lattice on the
+    T-sharded chain: per-rank O(T / model) log-prob and lattice memory."""
+    if mesh is None or mesh.model == 1:
+        lp_blank, lp_label = joint_lattice_log_probs(
+            joint, audio, text, targets, u_lens, blank, chunk_size, grad_clamp)
+        return reduce_losses(lattice_nll(lp_blank, lp_label, t_lens, u_lens),
+                             reduction)
+    from rnnt_tpu_torch.ops.lattice_tshard import pad_block, t_block, tsharded_block_nll
+
+    start, stop, rows = t_block(audio.shape[1], mesh)
+    if stop == start:
+        raise ValueError(f"T = {audio.shape[1]} frames leave model rank "
+                         f"{mesh.model_rank} of {mesh.model} no rows")
+    lp_blank, lp_label = pad_block(*joint_lattice_log_probs(
+        joint, audio, text, targets, u_lens, blank, chunk_size, grad_clamp,
+        t_rows=slice(start, stop)), rows)
+    return reduce_losses(tsharded_block_nll(lp_blank, lp_label, t_lens, u_lens, mesh),
                          reduction)

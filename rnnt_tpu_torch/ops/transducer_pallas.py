@@ -44,7 +44,7 @@ import ctypes
 
 import torch
 
-from rnnt_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor, ptr
+from rnnt_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor
 from rnnt_tpu_torch.ops.transducer import NEG, lattice_nll, reduce_losses
 
 _P = ctypes.c_void_p
@@ -96,8 +96,7 @@ def fused_joint_forward(enc, pred, w, b, labels, blank: int):
     B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank)
     outs = [torch.empty((B, T, U1), dtype=torch.float32, device=enc.device)
             for _ in range(3)]
-    K1.launch(ptr(enc), ptr(pred), ptr(w), ptr(b), ptr(labels),
-              *(ptr(o) for o in outs), B, T, U1, H, V, blank)
+    K1.launch(enc, pred, w, b, labels, *outs, B, T, U1, H, V, blank)
     return tuple(outs)
 
 
@@ -166,10 +165,8 @@ def fused_joint_backward(enc, pred, w, b, labels, blank: int, lse, g_blank,
     dpred = torch.zeros((B, U1, H), dtype=torch.float32, device=dev)
     dw = torch.zeros((H, V), dtype=torch.float32, device=dev)
     db = torch.zeros((V,), dtype=torch.float32, device=dev)
-    K2.launch(ptr(enc), ptr(pred), ptr(w), ptr(b), ptr(labels), ptr(lse),
-              ptr(g_blank), ptr(g_label), ptr(g_lse), ptr(dl_ws), ptr(denc),
-              ptr(dpred), ptr(dw), ptr(db), B, T, U1, H, V, blank,
-              float(grad_clamp))
+    K2.launch(enc, pred, w, b, labels, lse, g_blank, g_label, g_lse, dl_ws,
+              denc, dpred, dw, db, B, T, U1, H, V, blank, float(grad_clamp))
     return denc, dpred, dw, db
 
 

@@ -25,7 +25,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from rnnt_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor, ptr
+from rnnt_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,7 +73,7 @@ def gather_windows(x: torch.Tensor, starts: torch.Tensor,
     check_cuda_tensor("x", x, torch.float32, (B, L), x.device)
     check_cuda_tensor("starts", starts, torch.int32, (B, N), x.device)
     out = torch.empty((B, N, width), dtype=torch.float32, device=x.device)
-    K5.launch(ptr(x), ptr(starts), ptr(out), B, L, N, width)
+    K5.launch(x, starts, out, B, L, N, width)
     return out
 
 

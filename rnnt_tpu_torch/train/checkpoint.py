@@ -10,7 +10,11 @@ own files in place of orbax: a checkpoint directory holds
   (and accumulation) leaves under ``/``-joined JAX paths.
 
 Saves are synchronous.  ``restore`` resumes the model (weights and
-batch-norm statistics), the optimizer state and the step.
+batch-norm statistics), the optimizer state and the step.  On a multi-rank
+run the loop saves on rank 0 only and every rank restores: every
+parameter and moment is replicated over the mesh, so rank 0's state is
+the whole state.  A tensor-parallel joint will change that: each model
+rank's shard then has to be gathered or written by its owner.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ Port of ``rnnt_tpu/train/loop.py``:
   batch, the exact eval loss (a pruned training objective is scored with
   the chunked exact loss), the eval forward and the batched greedy decode,
   then corpus WER against the references.
-* ``train`` — ``train`` at ``:149-498`` on one process: the augmentor
-  chosen as at ``:173-203`` (host recipe, device recipe or both), the
-  staging as at ``:280-318`` (the on-card corpus cache of
+* ``train`` — ``train`` at ``:149-498``, on one process or on every rank
+  of a ``torch.distributed`` process group (parallel/mesh.py): the
+  augmentor chosen as at ``:173-203`` (host recipe, device recipe or both),
+  the staging as at ``:280-318`` (the on-card corpus cache of
   data/device_cache.py under ``staging: auto`` or ``device`` when there is
   no host augmentor and the corpus fits its budget, else batches streamed
   from a ``BatchIterator`` with the data's worker pool behind a
@@ -18,7 +19,17 @@ Port of ``rnnt_tpu/train/loop.py``:
   emergency checkpoint, periodic eval and checkpoints, a final checkpoint,
   and the last WER returned.  Each step's record in ``metrics.jsonl`` also
   holds ``launches/<kernel>``, the hand-written kernels' launches in that
-  step (0 on the CPU, where their plain versions run).
+  step on rank 0 (0 on the CPU, where their plain versions run), and on
+  more than one rank ``launches_by_rank/<kernel>``, every rank's; an
+  eval's record holds ``eval_launches/<kernel>``.
+
+On more than one rank every rank caches the corpus on its own card (the
+reference replicates its cache over the mesh, ``data/device_cache.py:19``,
+but downgrades an explicit ``staging: device`` to streaming on multi-process
+runs, ``:295``; the port does not) or streams the whole global batch, and
+takes its ``data`` rows of the same global batch.  Logging,
+``metrics.jsonl``, evaluation and checkpoint saves happen on rank 0 with
+barriers around them; a resume restores on every rank.
 """
 
 from __future__ import annotations
@@ -30,11 +41,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rnnt_tpu_torch.config.config import (
     Config,
     build_featurizer_spec,
     build_model_spec,
+    check_mesh,
     save_config,
 )
 from rnnt_tpu_torch.data.augment import build_augmentor, default_augmentor
@@ -51,6 +64,7 @@ from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer
 from rnnt_tpu_torch.decode.greedy import greedy_decode
 from rnnt_tpu_torch.models.rnnt import RNNT, rnnt_init
 from rnnt_tpu_torch.ops.kernels import launch_counts
+from rnnt_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rnnt_tpu_torch.train import checkpoint as ckpt
 from rnnt_tpu_torch.train.metrics import wer
 from rnnt_tpu_torch.train.optim import make_optimizer
@@ -178,7 +192,8 @@ class MetricsLogger:
     def log(self, step: int, scalars: dict) -> None:
         if self.writer is not None:
             for k, v in scalars.items():
-                self.writer.add_scalar(k, v, step)
+                if not isinstance(v, list):  # per-rank lists: the JSON only
+                    self.writer.add_scalar(k, v, step)
         self.jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
         self.jsonl.flush()
 
@@ -197,11 +212,18 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
         (42 + 1009 * seed) * 1_000_003 + step)
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.mesh.data > 1 or cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"a mesh of data={cfg.mesh.data}, model={cfg.mesh.model} is not "
-            "ported to rnnt_tpu_torch yet (multi-GPU is slice 4); use one card")
+def _barrier(mesh: Mesh) -> None:
+    if mesh.world > 1:
+        dist.barrier()
+
+
+def _from_main(mesh: Mesh, value):
+    """Rank 0's ``value`` on every rank."""
+    if mesh.world == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def select_augmentor(cfg: Config, make_augmentor=None):
@@ -233,7 +255,7 @@ def select_augmentor(cfg: Config, make_augmentor=None):
 
 
 def build_cache(cfg: Config, train_ds, tokenizer, buckets, fspec, augmentor,
-                device) -> DeviceSampleCache | None:
+                device, log=print) -> DeviceSampleCache | None:
     """The on-card corpus cache the run trains from, or None to stream:
     ``staging: auto`` caches when there is no host augmentor and the
     corpus fits ``device_cache_budget_mb``; ``device`` insists (raises with
@@ -257,27 +279,32 @@ def build_cache(cfg: Config, train_ds, tokenizer, buckets, fspec, augmentor,
         if dc.staging == "device":
             raise ValueError(f"data.staging: device — corpus exceeds "
                              f"device_cache_budget_mb={dc.device_cache_budget_mb}")
-        print("note: corpus exceeds device_cache_budget_mb; streaming batches")
+        log("note: corpus exceeds device_cache_budget_mb; streaming batches")
     else:
-        print(f"device sample cache: {cache.n_samples} samples, "
-              f"{cache.nbytes() / 2**20:.1f} MiB on {device}")
+        log(f"device sample cache: {cache.n_samples} samples, "
+            f"{cache.nbytes() / 2**20:.1f} MiB on {device}")
     return cache
 
 
 def train(cfg: Config, *, output_base: str | Path = "experiments",
           resume: str | None = None, max_steps: int | None = None,
           device=None, make_augmentor=None) -> float:
-    """Train per ``cfg`` on one card (CUDA unless ``device="cpu"``); return
-    the last eval WER.
+    """Train per ``cfg`` on this rank's card (CUDA unless ``device="cpu"``);
+    return the last eval WER.
 
     Every ``data.augment`` / ``augment_device`` / ``staging`` /
     ``training.spec_augment`` setting runs as in the reference;
-    ``make_augmentor(cfg)``, when given, builds the host augmentor.  A data
-    or model mesh larger than 1 and a non-synthetic dataset raise.  A run
-    writes ``<output_base>/<model>/run-N`` with config.yaml, metrics.jsonl
-    and ``checkpoint_step_<step>`` directories."""
+    ``make_augmentor(cfg)``, when given, builds the host augmentor.  The
+    ``mesh`` section lays the ranks of the initialised process group (one
+    rank without one) out as data x model; a mesh that does not match the
+    group, and a non-synthetic dataset, raise.  Rank 0 writes
+    ``<output_base>/<model>/run-N`` with config.yaml, metrics.jsonl and
+    ``checkpoint_step_<step>`` directories."""
     dev = resolve_device(device)
-    _check_ported(cfg)
+    mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
+    check_mesh(cfg, mesh.data, mesh.model)
+    is_main = mesh.is_main
+    say = print if is_main else (lambda *a, **k: None)
     tc = cfg.training
     spec = build_model_spec(cfg)
     fspec = build_featurizer_spec(cfg)
@@ -286,11 +313,16 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
     buckets = Buckets.from_frames(tc.frame_buckets, tc.token_buckets, fspec)
     augmentor = select_augmentor(cfg, make_augmentor)
     device_augment = cfg.data.augment and cfg.data.augment_device
-    cache = build_cache(cfg, train_ds, tokenizer, buckets, fspec, augmentor, dev)
+    cache = build_cache(cfg, train_ds, tokenizer, buckets, fspec, augmentor, dev,
+                        log=say)
 
-    output_dir = ckpt.next_run_dir(output_base, cfg.model_name)
-    save_config(cfg, output_dir / "config.yaml")
-    print(f"Output directory: {output_dir}")
+    output_dir = _from_main(mesh, ckpt.next_run_dir(output_base, cfg.model_name)
+                            if is_main else None)
+    if is_main:
+        save_config(cfg, output_dir / "config.yaml")
+    say(f"Output directory: {output_dir}"
+        + (f" ({mesh.world} ranks: data {mesh.data} x model {mesh.model}, "
+           f"{mesh.backend})" if mesh.world > 1 else ""))
     steps_per_epoch = max(len(train_ds) // tc.global_batch_size, 1)
     total_steps = tc.total_steps or steps_per_epoch * tc.num_epochs
     if max_steps is not None:
@@ -300,16 +332,16 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
     model = rnnt_init(spec, seed=tc.seed, device=dev)
     for k in ("encoder", "predictor", "joint"):
         n = sum(p.numel() for p in getattr(model, k).parameters())
-        print(f"Number of {k} parameters: {n:,}")
+        say(f"Number of {k} parameters: {n:,}")
     state = TrainState(model, optimizer.init(dict(model.named_parameters())), 0)
     if resume:
         opt_state, step = ckpt.restore(resume, model)
         state = TrainState(model, opt_state, step)
-        print(f"Resumed from {resume} at step {step}")
+        say(f"Resumed from {resume} at step {step}")
 
     step_fn = make_train_step(spec, fspec, optimizer, tc.precision,
                               spec_augment=tc.spec_augment,
-                              device_augment=device_augment)
+                              device_augment=device_augment, mesh=mesh)
     # k2-style pruned warmup: the exact loss (+ simple heads) for the first
     # pruned_warmup_steps, then the banded loss; chosen by step, so resume
     # picks the right one.
@@ -319,9 +351,9 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         warm_fn = make_train_step(
             dataclasses.replace(spec, loss_impl="pruned_warmup"), fspec,
             optimizer, tc.precision, spec_augment=tc.spec_augment,
-            device_augment=device_augment)
+            device_augment=device_augment, mesh=mesh)
 
-    logger = MetricsLogger(output_dir)
+    logger = MetricsLogger(output_dir) if is_main else None
     last_wer = float("nan")
     pending: list = []  # (step, metrics of 0-d tensors, kernel launches)
     t_log = time.time()
@@ -333,12 +365,21 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             return
         last_loss = float(pending[-1][1]["loss"])  # waits for the card
         dt = time.time() - t_log
-        if not np.isfinite(last_loss):
-            ckpt.save(output_dir, state, cfg)
+        if not np.isfinite(last_loss):  # the same loss on every rank
+            if is_main:
+                ckpt.save(output_dir, state, cfg)
             raise FloatingPointError(
                 f"non-finite loss {last_loss} at step {pending[-1][0]}; "
                 f"emergency checkpoint saved to {output_dir}")
-        for s, m, launched in pending:
+        mine = [launched for _, _, launched in pending]
+        by_rank = [mine]
+        if mesh.world > 1:
+            by_rank = [None] * mesh.world
+            dist.all_gather_object(by_rank, mine)
+        if not is_main:
+            pending, audio_secs, t_log = [], 0.0, time.time()
+            return
+        for i, (s, m, launched) in enumerate(pending):
             scalars = {"loss/train": float(m["loss"]),
                        "total_norm/train": float(m["grad_norm"]),
                        "learning_rate": sched(s - 1),
@@ -347,6 +388,9 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             scalars.update({f"total_norm/{k.split('/', 1)[1]}": float(v)
                             for k, v in m.items() if k.startswith("grad_norm/")})
             scalars.update({f"launches/{k}": n for k, n in launched.items()})
+            if mesh.world > 1:
+                scalars.update({f"launches_by_rank/{k}": [r[i][k] for r in by_rank]
+                                for k in launched})
             logger.log(s, scalars)
         sps = len(pending) / dt if dt > 0 else 0.0
         asps = audio_secs / dt if dt > 0 else 0.0
@@ -359,24 +403,45 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         pending, audio_secs, t_log = [], 0.0, time.time()
 
     def run_eval() -> None:
+        """Rank 0 scores the model (replicated on every rank) while the
+        others wait; then every rank takes rank 0's WER."""
         nonlocal last_wer, t_log
-        model.eval()
-        res = evaluate(cfg, model, device=dev, batch_size=tc.global_batch_size)
-        model.train()
+        _barrier(mesh)
+        if is_main:
+            before = launch_counts()
+            model.eval()
+            res = evaluate(cfg, model, device=dev, batch_size=tc.global_batch_size)
+            model.train()
+            if res["utterances"]:
+                last_wer = res["wer"]
+                logger.log(state.step, {
+                    "wer/eval": last_wer, "loss/eval_exact": res["nll"],
+                    **{f"eval_launches/{k}": n - before[k]
+                       for k, n in launch_counts().items()}})
+                print(f"eval wer at step {state.step}: {last_wer:.4f} "
+                      f"(exact nll {res['nll']:.3f})")
+        last_wer = _from_main(mesh, last_wer)
         t_log = time.time()
-        if res["utterances"]:
-            last_wer = res["wer"]
-            logger.log(state.step, {"wer/eval": last_wer,
-                                    "loss/eval_exact": res["nll"]})
-            print(f"eval wer at step {state.step}: {last_wer:.4f} "
-                  f"(exact nll {res['nll']:.3f})")
+
+    def save() -> None:
+        """Rank 0 writes the checkpoint: every parameter and optimizer
+        moment is replicated over the mesh (no tensor-parallel sharding
+        yet), so rank 0 holds the whole state.  A V-sharded joint will need
+        each model rank's shard gathered or written by its owner."""
+        _barrier(mesh)
+        if is_main:
+            ckpt.save(output_dir, state, cfg)
+        _barrier(mesh)
+
+    rows = mesh.rows(tc.global_batch_size // mesh.data)
 
     def epoch_batches(epoch: int):
-        """(batch on the device, its audio seconds) of one epoch: rows
-        gathered from the cache in its order, or streamed batches."""
+        """(this rank's rows of a global batch on the device, the global
+        batch's audio seconds) of one epoch: rows gathered from the cache
+        in its order, or streamed batches."""
         if cache is not None:
             for gi, idx in cache.epoch_batches(tc.global_batch_size, seed=epoch):
-                yield (gather_rows(cache.groups[gi], idx),
+                yield (gather_rows(cache.groups[gi], idx[rows]),
                        cache.batch_audio_seconds(gi, idx))
             return
         it = BatchIterator(train_ds, tokenizer, buckets,
@@ -386,7 +451,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                            worker_mode=cfg.data.worker_mode,
                            wire_dtype=cfg.data.wire_dtype)
         for batch in PrefetchIterator(it, depth=4):
-            yield (batch_to_device(batch, dev),
+            yield (batch_to_device({k: v[rows] for k, v in batch.items()}, dev),
                    float(batch["audio_lens"].sum()) / fspec.sample_rate)
 
     model.train()
@@ -407,7 +472,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                 flush(epoch)
                 run_eval()
             if state.step % tc.checkpoint_steps == 0:
-                ckpt.save(output_dir, state, cfg)
+                save()
             if state.step >= total_steps:
                 done = True
                 break
@@ -415,6 +480,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
     flush(max(tc.num_epochs, 1) - 1)
     if np.isnan(last_wer):
         run_eval()
-    ckpt.save(output_dir, state, cfg)
-    logger.close()
+    save()
+    if logger is not None:
+        logger.close()
     return last_wer

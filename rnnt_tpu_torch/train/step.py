@@ -22,6 +22,18 @@ the clip), the optimizer update and the new batch-norm statistics.  One
 generator per step draws, in this order, the device augmentation, the
 SpecAugment masks and the dropout bits, so a resumed run draws what a
 straight one does; with no generator none of the three runs.
+
+On a mesh (parallel/mesh.py) each rank's batch is its rows of the global
+batch.  Every draw is made at the global batch's shape from the same
+generator on every rank and sliced to the rank's rows (``RowGenerator``),
+so a d-rank step computes what the 1-rank step does, and the model ranks of
+one data row run identical encoders.  With ``lattice_shard_t`` and a
+``model`` axis larger than 1 the loss runs the T-sharded lattice (the
+chunked joint on the rank's T block, K6 and K7).  The gradients are summed
+over the model group (each model rank back-propagates only its T block of
+a loss the group shares; without ``lattice_shard_t`` the model ranks are
+replicas and are averaged) and averaged over the data group, before the
+global norm and the clip.
 """
 
 from __future__ import annotations
@@ -42,7 +54,9 @@ from rnnt_tpu_torch.ops.transducer_pruned import (
     pruned_transducer_loss,
     pruned_warmup_loss,
 )
+from rnnt_tpu_torch.parallel.mesh import all_reduce_sum
 from rnnt_tpu_torch.train.optim import OptState
+from rnnt_tpu_torch.utils import RowGenerator, batch_draw
 
 LOSS_IMPLS = ("auto", "pallas", "chunked", "pruned", "pruned_warmup")
 SUBMODELS = ("encoder", "predictor", "joint")
@@ -98,13 +112,21 @@ def make_eval_forward(spec: RNNTSpec, fspec: FeaturizerSpec,
 
 def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
                  spec_augment: bool = False,
-                 device_augment: bool | str = False):
+                 device_augment: bool | str = False, mesh=None):
     """``loss_fn(model, batch, *, training=False, generator=None,
     new_state=None) -> mean loss``; in training the new batch-norm
     statistics go into ``new_state`` when a dict is given, and with a
-    generator the augmentations run."""
+    generator (or a ``RowGenerator``) the augmentations run.  ``mesh`` is
+    read only under ``spec.lattice_shard_t``: the loss then takes the
+    chunked joint and, when the mesh's ``model`` axis is larger than 1, the
+    T-sharded lattice (``rnnt_tpu/train/step.py:70-77,129-142``)."""
     if spec.loss_impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss_impl {spec.loss_impl!r}")
+    if spec.loss_impl == "pruned" and spec.lattice_shard_t:
+        raise ValueError("lattice_shard_t does not compose with "
+                         "loss_impl='pruned' (the banded lattice is already "
+                         "O(T*band) per rank)")
+    tshard_mesh = mesh if spec.lattice_shard_t else None
     if device_augment not in (False, True, "full"):
         raise ValueError(f"device_augment must be False|True|'full', "
                          f"got {device_augment!r}")
@@ -120,19 +142,22 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
         if device_augment and augmenting:
             B, L = wave.shape
             if device_augment == "full":
-                draws = augment_device.device_augment_full_draws(
-                    generator, B, L, device=wave.device)
+                draws = batch_draw(generator, B, lambda g, n: (
+                    augment_device.device_augment_full_draws(
+                        g, n, L, device=wave.device)))
                 wave, audio_lens = augment_device.device_augment_full_apply(
                     draws, wave, audio_lens, fspec.sample_rate)
             else:
-                draws = augment_device.device_augment_draws(
-                    generator, B, L, device=wave.device)
+                draws = batch_draw(generator, B, lambda g, n: (
+                    augment_device.device_augment_draws(
+                        g, n, L, device=wave.device)))
                 wave = augment_device.device_augment_apply(
                     draws, wave, audio_lens, fspec.sample_rate)
         feats = featurize(wave)
         if spec_augment and augmenting:
-            draws = augment.spec_augment_draws(generator, *feats.shape,
-                                               device=feats.device)
+            B, T, F = feats.shape
+            draws = batch_draw(generator, B, lambda g, n: augment.spec_augment_draws(
+                g, n, T, F, device=feats.device))
             feats = augment.spec_augment_apply(feats, draws)
         feats = feats.to(dtype)
         feat_lens = feature_lens_from_samples(audio_lens, fspec)
@@ -152,10 +177,11 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
                 *args, band=spec.pruned_band,
                 simple_scale=spec.pruned_simple_scale,
                 pruned_scale=spec.pruned_scale, grad_clamp=spec.grad_clamp)
-        if resolve_loss_impl(spec.loss_impl, audio.device) == "pallas":
+        if (tshard_mesh is None
+                and resolve_loss_impl(spec.loss_impl, audio.device) == "pallas"):
             return transducer_loss_pallas(*args, grad_clamp=spec.grad_clamp)
         return transducer_loss(*args, chunk_size=spec.loss_chunk_size,
-                               grad_clamp=spec.grad_clamp)
+                               grad_clamp=spec.grad_clamp, mesh=tshard_mesh)
 
     return loss_fn
 
@@ -175,28 +201,61 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
 
 
+def sync_grads(grads: list, scale: float) -> list:
+    """The gradients summed over every rank and scaled, as one flat
+    all-reduce."""
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+    flat.mul_(scale)
+    return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def _uses_batch_norm(spec: RNNTSpec) -> bool:
+    return "batch" in {spec.encoder.norm_type, *(b.norm_type for b in spec.encoder.blocks)}
+
+
 def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
                     precision: str = "bf16", spec_augment: bool = False,
-                    device_augment: bool | str = False):
+                    device_augment: bool | str = False, mesh=None):
     """``step(state, batch, generator) -> (state, metrics)``.  ``batch``
-    holds tensors on the model's device; ``generator`` (on that device, or
-    None for no augmentation and no dropout) draws the augmentations and
-    the dropout bits.  Metrics are 0-d tensors: loss, grad_norm (before the
-    clip), total_target_len and grad_norm/{encoder,predictor,joint}."""
+    holds tensors on the model's device (on a ``mesh``, the rank's rows of
+    the global batch); ``generator`` (on that device, or None for no
+    augmentation and no dropout) draws the augmentations and the dropout
+    bits.  Metrics are 0-d tensors of the global batch: loss, grad_norm
+    (before the clip), total_target_len and
+    grad_norm/{encoder,predictor,joint}."""
     loss_fn = make_loss_fn(spec, fspec, precision, spec_augment=spec_augment,
-                           device_augment=device_augment)
+                           device_augment=device_augment, mesh=mesh)
+    multi = mesh is not None and mesh.world > 1
+    if multi and mesh.data > 1 and _uses_batch_norm(spec):
+        raise NotImplementedError(
+            "batch-norm statistics reduced over the data group are not ported "
+            "yet (ROADMAP §1, with the tensor-parallel joint); use an "
+            "instance norm or mesh.data=1")
+    # Each model rank of a T-sharded loss holds a part of the gradient; the
+    # model ranks of any other loss are replicas.
+    tshard = multi and spec.lattice_shard_t and mesh.model > 1
+    grad_scale = 1.0 / (mesh.data if tshard else mesh.world) if multi else 1.0
 
     def step(state: TrainState, batch: dict, generator):
         model = state.model
         names, params = zip(*model.named_parameters())
+        if multi and mesh.data > 1 and generator is not None:
+            B = batch["target_lens"].shape[0]
+            generator = RowGenerator(generator, mesh.data_rank * B, mesh.data * B)
         new_norm: dict = {}
         loss = loss_fn(model, batch, training=True, generator=generator,
                        new_state=new_norm)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(params, grads)]
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
-                   "total_target_len": batch["target_lens"].sum()}
+        loss, target_len = loss.detach(), batch["target_lens"].sum()
+        if multi:
+            grads = sync_grads(grads, grad_scale)
+            both = all_reduce_sum(torch.stack([loss.float(), target_len.float()]))
+            loss = both[0] / mesh.world  # the model ranks' losses are equal
+            target_len = torch.round(both[1] / mesh.model).long()
+        metrics = {"loss": loss, "grad_norm": global_norm(grads),
+                   "total_target_len": target_len}
         for sub in SUBMODELS:
             metrics[f"grad_norm/{sub}"] = global_norm(
                 [g for n, g in zip(names, grads) if n.split(".")[0] == sub])

@@ -1,6 +1,6 @@
 """K1 and K2 (fused joint forward and backward), K3 and K4 (alpha and
-beta recursions) and K5 (window gather) on the card against their plain
-PyTorch versions.
+beta recursions), K5 (window gather) and K6 and K7 (the T-sharded chain's
+alpha and beta stages) on the card against their plain PyTorch versions.
 Skipped without CUDA; on a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda
@@ -14,7 +14,7 @@ bits, so a few dl values round to the neighbouring bf16 (2^-8 relative),
 and fp32 atomics sum in a varying order.  K4: the gradients are
 exp(alpha + lp + beta - ll) with exponents summed from O(10^2-10^3)
 log-probs in another order, so atol 1e-4, rtol 3e-3.  K5 copies values:
-bit-equal.
+bit-equal.  K6 and K7 take K3's and K4's tolerances.
 """
 
 import math
@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from rnnt_tpu_torch.ops.lattice_pallas import (
-    K3, K4, alpha_forward, alpha_plain, beta_backward, beta_plain)
+    K3, K4, K6, K7, alpha_chain_forward, alpha_chain_plain, alpha_forward,
+    alpha_plain, beta_backward, beta_chain_backward, beta_chain_plain, beta_plain)
 from rnnt_tpu_torch.ops.transducer import NEG
 from rnnt_tpu_torch.ops.transducer_pallas import (
     K1, K2, fused_joint_backward, fused_joint_bwd_plain, fused_joint_outputs,
@@ -156,6 +157,54 @@ def test_k4_matches_plain(cuda, shape):
     want = beta_plain(*args[:2], alpha, *args[2:], nll, cot.to(cuda))
     for x, y in zip(got, want):
         _close(x, y, atol=1e-4, rtol=3e-3)
+
+
+@pytest.mark.parametrize("shape,n", [((4, 40, 17), 2), ((4, 150, 31), 3),
+                                     ((4, 64, 300), 4)])
+def test_k6_k7_match_plain_on_every_shard(cuda, shape, n):
+    """The chain of n shards at their t0, each shard's carry from the
+    previous (K6) or next (K7) shard's kernel; t_lens end inside, at the
+    edge of and before a shard."""
+    B, T, U1 = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    lpb = (torch.randn(B, T, U1, generator=g) - 1.5).to(cuda)
+    lpl = torch.randn(B, T, U1, generator=g) - 1.5
+    u_lens = torch.randint(0, U1, (B,), generator=g, dtype=torch.int32)
+    lpl = torch.where(torch.arange(U1)[None, None, :] < u_lens[:, None, None],
+                      lpl, torch.full_like(lpl, NEG)).to(cuda)
+    rows = -(-T // n)
+    t_lens = torch.tensor([rows + rows // 2, rows, rows // 2, T], dtype=torch.int32,
+                          device=cuda)
+    u_lens = u_lens.to(cuda)
+    blocks = [(s * rows, lpb[:, s * rows:(s + 1) * rows].contiguous(),
+               lpl[:, s * rows:(s + 1) * rows].contiguous()) for s in range(n)]
+    carry = torch.full((B, U1), NEG, device=cuda)
+    alphas, ll = [], 0.0
+    for t0, b, l in blocks:
+        before = K6.launches
+        got = alpha_chain_forward(b, l, t_lens, u_lens, t0, carry)
+        torch.cuda.synchronize()
+        assert K6.launches == before + 1
+        want = alpha_chain_plain(b, l, t_lens, u_lens, t0, carry)
+        live = want[0] > NEG / 2
+        _close(got[0][live], want[0][live], atol=1e-3, rtol=1e-5)
+        _close(got[1], want[1], atol=1e-3, rtol=1e-5)
+        alphas.append(got[0])
+        ll, carry = ll + got[1], got[2]
+    cot = torch.randn(B, generator=g).to(cuda)
+    carry = torch.full((B, U1), NEG, device=cuda)
+    for (t0, b, l), a in reversed(list(zip(blocks, alphas))):
+        args = (b, l, a, t_lens, u_lens, ll, cot, t0, carry)
+        before = K7.launches
+        got = beta_chain_backward(*args)
+        torch.cuda.synchronize()
+        assert K7.launches == before + 1
+        want = beta_chain_plain(*args)
+        for x, y in zip(got[:2], want[:2]):
+            _close(x, y, atol=1e-4, rtol=3e-3)
+        live = want[2] > NEG / 2
+        _close(got[2][live], want[2][live], atol=1e-4, rtol=3e-3)
+        carry = got[2]
 
 
 @pytest.mark.parametrize("B,L,N,width,lo,hi", [

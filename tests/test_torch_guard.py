@@ -87,7 +87,8 @@ def test_train_refuses_missing_cuda(no_cuda, tmp_path):
 
 def test_kernels_refuse_other_devices():
     """Wrappers take the plain path only for CPU tensors."""
-    from rnnt_tpu_torch.ops.lattice_pallas import alpha_forward, beta_backward
+    from rnnt_tpu_torch.ops.lattice_pallas import (
+        alpha_chain_forward, alpha_forward, beta_backward, beta_chain_backward)
     from rnnt_tpu_torch.ops.transducer_pallas import (
         fused_joint_backward, fused_joint_outputs)
     from rnnt_tpu_torch.ops.window_gather import gather_windows
@@ -104,3 +105,9 @@ def test_kernels_refuse_other_devices():
                              meta)
     with pytest.raises(ValueError, match="K5 runs on CUDA or the CPU"):
         gather_windows(meta[0], meta[0], 128)
+    with pytest.raises(ValueError, match="K6 runs on CUDA or the CPU"):
+        alpha_chain_forward(meta, meta, meta, meta, 3, meta)
+    with pytest.raises(ValueError, match="K7 runs on CUDA or the CPU"):
+        beta_chain_backward(meta, meta, meta, meta, meta, meta, meta, 3, meta)
+    with pytest.raises(ValueError, match="t0 >= 0"):
+        alpha_chain_forward(meta, meta, meta, meta, -1, meta)

@@ -343,7 +343,8 @@ def test_cli_train_writes_checkpoint_cli_eval_reads(vocab, tmp_path, capsys):
                 for r in rows if "loss/train" in r]
     assert all(set(x) == {"launches/joint_fwd", "launches/joint_bwd",
                           "launches/alpha_fwd", "launches/beta_bwd",
-                          "launches/window_gather"}
+                          "launches/window_gather", "launches/alpha_chain",
+                          "launches/beta_chain"}
                and not any(x.values()) for x in launches)
     out = capsys.readouterr().out
     assert "TF32 off" in out and f"final wer: {final_wer}" in out
@@ -352,15 +353,18 @@ def test_cli_train_writes_checkpoint_cli_eval_reads(vocab, tmp_path, capsys):
     assert res["utterances"] == 4 and np.isfinite(res["wer"])
 
 
-@pytest.mark.parametrize("override,match", [
-    ("mesh.data=2", "mesh"),
-    ("data.dataset=librispeech", "dataset"),
+@pytest.mark.parametrize("override,error,match", [
+    ("mesh.data=2", ValueError, "mesh data=2 x model=1 needs 2 ranks"),
+    ("data.dataset=librispeech", NotImplementedError, "dataset"),
 ])
-def test_train_refuses_what_is_not_ported(vocab, tmp_path, override, match):
+def test_train_refuses_what_is_not_ported(vocab, tmp_path, override, error, match):
+    """A mesh larger than the process group (one process here) and an
+    unported dataset raise before a run is written."""
     cfg = tconfig.apply_overrides(tconfig.load_config(tconfig.resolve_config(
         "tiny_conv")), _overrides(vocab, "chunked") + [override])
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         tloop.train(cfg, output_base=tmp_path, max_steps=1, device="cpu")
+    assert not any(tmp_path.iterdir())
 
 
 # --------------------------- augmented training ---------------------------
