@@ -15,7 +15,11 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    call on a full-width batch: chorus, resample, trim, time-stretch frames)
    and at edge cases — with the tolerances stated below, timed with CUDA
    events (median after warm-up) beside the least time the card could take
-   and, for K5, one ``torch.gather`` call computing the same function;
+   and, for K5, one ``torch.gather`` call computing the same function; K2
+   also at scaled_tp's joint width (2, 32, 17, 2048, 1024), its device
+   time split by kernel (its h, dl, dh and dW passes, torch.profiler), its
+   TFLOP/s, and a GEMM yardstick (``gemm_ms``: its three bare products as
+   ``torch.matmul``, which the port never calls);
 3a. chain phase (slice 4): K6 and K7 on every shard of the eval lattice
    (4, 504, 65) cut into 2 shards and the long lattice (4, 1000, 257) cut
    into 4, each shard at its global row offset with the previous (K6) or
@@ -181,20 +185,7 @@ def device_ms(fn, reps: int = 20) -> float:
     """Mean device time per call of ``fn``'s kernels (torch.profiler), after
     a warm-up call: for kernels so short that CUDA events around one call
     time its launch from Python, not the kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then reports no device events
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if spans:
-            return sum(t.end - t.start for t in spans) / reps / 1e3
-    raise AssertionError("the profiler saw no device activity in 3 sessions")
+    return sum(device_ms_by_kernel(fn, reps).values())
 
 
 def sync(device) -> None:
@@ -344,21 +335,85 @@ def rel_l2(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
 
 
-def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
-                       long_case=K3_LONG, reps=20) -> dict:
-    """K2 and K4 against their plain versions, timed."""
-    from rnnt_tpu_torch.ops.lattice_pallas import alpha_plain, beta_backward, beta_plain
-    from rnnt_tpu_torch.ops.transducer_pallas import (
-        fused_joint_backward, fused_joint_bwd_plain, fused_joint_outputs_plain)
+def kernel_name(name: str) -> str:
+    """A device kernel's profiler name cut to its function and template
+    arguments: ``void sm90::gemm_kernel<(anonymous namespace)::DlPass>(...)``
+    -> ``gemm_kernel<DlPass>``."""
+    s = name.replace("(anonymous namespace)::", "").split("(")[0].strip()
+    s = s.removeprefix("void ")
+    base, _, args = s.partition("<")
+    return (base.split("::")[-1] + (f"<{args}" if args else ""))[:60]
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict[str, float]:
+    """{kernel name: mean device ms per call of ``fn``} (torch.profiler),
+    after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then reports no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = kernel_name(e.name)
+            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+        if by_name:
+            return {k: v / reps / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
+    raise AssertionError("the profiler saw no device activity in 3 sessions")
+
+
+def k2_case(dims, device):
+    """K1's inputs at ``dims`` plus K2's saved lse and three cotangents."""
+    from rnnt_tpu_torch.ops.transducer_pallas import fused_joint_outputs_plain
+
+    args = k1_inputs(**dims, device=device)
+    lse = fused_joint_outputs_plain(*args)[0]
+    g = torch.Generator().manual_seed(1)
+    gb, gl = (torch.randn(dims["B"], dims["T"], dims["U1"], generator=g).to(device) * 0.3
+              for _ in range(2))
+    return args, (lse, gb, gl, -(gb + gl))
+
+
+def k2_gemm_ms(B, T, U1, H, V, device, reps: int) -> float:
+    """The GEMM yardstick: K2's three bare products (h.W, dl.W^T, h^T.dl)
+    as torch.matmul on bf16 operands of K2's shapes.  Timed beside K2, never
+    called by the port."""
+    g = torch.Generator().manual_seed(2)
+    n = B * T * U1
+    h = torch.randn(n, H, generator=g).to(torch.bfloat16).to(device)
+    dl = torch.randn(n, V, generator=g).to(torch.bfloat16).to(device)
+    w = torch.randn(H, V, generator=g).to(torch.bfloat16).to(device)
+
+    def run():
+        torch.matmul(h, w)
+        torch.matmul(dl, w.T)
+        torch.matmul(h.T, dl)
+
+    return cuda_ms(run, reps)
+
+
+# K2 at scaled_tp's joint width (`hidden_features: 2048`).
+K2_WIDE = dict(B=2, T=32, U1=17, H=2048, V=1024)
+
+
+def k2_phase(device, cases=(("eval", EVAL_SHAPE), ("banded", BANDED_SHAPE),
+                            ("wide", K2_WIDE)), reps=20) -> dict:
+    """K2 against its plain version at each case, clamp off and at 0.01,
+    each output within K2_REL_L2; timed (CUDA events), its device time
+    split by kernel (the passes), the GEMM yardstick and the TFLOP/s of
+    its three products.  The first case's numbers are the entry, the
+    others ``<tag>_case``."""
+    from rnnt_tpu_torch.ops.transducer_pallas import fused_joint_backward, fused_joint_bwd_plain
 
     out = {}
-    for tag, dims in (("eval", shape), ("banded", banded)):
-        args = k1_inputs(**dims, device=device)
-        lse = fused_joint_outputs_plain(*args)[0]
-        g = torch.Generator().manual_seed(1)
-        gb, gl = (torch.randn(dims["B"], dims["T"], dims["U1"], generator=g).to(device)
-                  * 0.3 for _ in range(2))
-        cot = (lse, gb, gl, -(gb + gl))
+    for tag, dims in cases:
+        args, cot = k2_case(dims, device)
         err = 0.0
         for clamp in (-1.0, 0.01):
             got = fused_joint_backward(*args, *cot, clamp)
@@ -370,19 +425,36 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
                                          f"L2 error {e:.3e} > {K2_REL_L2}")
                 err = max(err, float((x - y).abs().max()))
         del got, want
-        m = dict(max_abs_err=err,
-                 ms=cuda_ms(lambda: fused_joint_backward(*args, *cot), reps),
+        call = lambda: fused_joint_backward(*args, *cot)  # noqa: E731
+        m = dict(max_abs_err=err, ms=cuda_ms(call, reps),
                  plain_ms=cuda_ms(lambda: fused_joint_bwd_plain(*args, *cot), 3, warmup=1),
                  bound_ms=k2_bound_ms(**dims), bound_by="operations",
                  shape="B={B} T={T} U1={U1} H={H} V={V}".format(**dims))
+        if torch.device(device).type == "cuda":
+            m["passes_ms"] = device_ms_by_kernel(call)
+        m["gemm_ms"] = k2_gemm_ms(**dims, device=device, reps=reps)
+        flops = 6.0 * dims["B"] * dims["T"] * dims["U1"] * dims["H"] * dims["V"]
+        m["tflops"] = flops / (m["ms"] * 1e-3) / 1e12
+        passes = ", ".join(f"{k} {v:.4f}" for k, v in m.get("passes_ms", {}).items())
         log(f"K2 {tag} ok {dims} (clamp off and 0.01): max abs err {err:.3e}, "
-            f"{m['ms']:.4f} ms (plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms)")
-        if tag == "eval":
-            out["K2"] = m
+            f"{m['ms']:.4f} ms = {m['tflops']:.1f} TFLOP/s (plain {m['plain_ms']:.4f} ms, "
+            f"bound {m['bound_ms']:.4f} ms, gemm yardstick {m['gemm_ms']:.4f} ms); "
+            f"device ms by kernel: {passes}")
+        if not out:
+            out = m
         else:
-            out["K2"]["banded_case"] = m
-        del args, lse, cot
+            out[f"{tag}_case"] = m
+        del args, cot
+    return out
 
+
+def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
+                       long_case=K3_LONG, reps=20) -> dict:
+    """K2 (``k2_phase``) and K4 against their plain versions, timed."""
+    from rnnt_tpu_torch.ops.lattice_pallas import alpha_plain, beta_backward, beta_plain
+
+    out = {"K2": k2_phase(device, (("eval", shape), ("banded", banded), ("wide", K2_WIDE)),
+                          reps)}
     for tag, dims in (("eval", dict(B=shape["B"], T=shape["T"], U1=shape["U1"])),
                       ("long", long_case)):
         k4 = k3_inputs(**dims, device=device)
@@ -1679,7 +1751,8 @@ def main() -> None:
     entries = []
     for key, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4), ("K5", K5)):
         m = measured[key]
-        extra = {c: m[c] for c in ("long_case", "banded_case", "cases") if c in m}
+        extra = {c: m[c] for c in ("long_case", "banded_case", "wide_case", "cases",
+                                   "passes_ms", "gemm_ms", "tflops") if c in m}
         if k.name in path["launches"]:
             extra["eval_launches"] = path["launches"][k.name]
         entries.append(dict(
@@ -1695,7 +1768,9 @@ def main() -> None:
                           "K5's ms, plain_ms and library_ms are device time from "
                           "torch.profiler summed over the 4 calls of one step"
                           if "library_ms" in m
-                          else "no single PyTorch call computes this function"),
+                          else "no single PyTorch call computes this function"
+                          + ("; gemm_ms: its three bare products as torch.matmul, a "
+                             "yardstick the port never calls" if "gemm_ms" in m else "")),
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
     tsteps = ranks["tshard"]["steps2"]

@@ -18,157 +18,54 @@
 //
 // Design.  The TPU kernel walks its grid in order and carries dW, db and
 // dpred in VMEM from step to step; Hopper's blocks run in parallel, and a
-// 64-row tile's dh at H = 1024 in f32 (256 KB) does not fit in a block's
-// shared memory.  So the three products are three kernels on the stream,
-// each parallel over its own output, with the (N, V) dl written once in
-// bf16 to a workspace in between (2 bytes per logit: 268 MB at the eval
-// shape, one write and two reads, ~0.24 ms of traffic at 3.35 TB/s):
-//   dl_kernel: K1's tiling — 64 flattened rows per block, tanh rows staged
-//     in shared memory once, W streamed through a 3-stage cp.async ring,
-//     ldmatrix + mma.sync m16n8k16 — recomputes each 64 x 128 chunk of
-//     logits, forms dl in registers, stores it in bf16 and adds the block's
-//     column sums into db (fp32 atomics).
-//   dh_kernel: dh = dl . W^T over (8 t x 8 u) lattice patches x 128 columns
-//     of H; the epilogue recomputes h, forms dpre, sums it over the patch's
-//     u (for denc) and t (for dpred) in shared memory and adds those sums
-//     with fp32 atomics (2 x 8 per column per block).
-//   dw_kernel: dW = h^T . dl over 64 x 128 output tiles, the rows split S
-//     ways for parallelism; h is recomputed per slab of 32 rows, dl streams
-//     in by cp.async; each block adds its partial tile with fp32 atomics.
+// row tile's dh at H = 1024 in f32 does not fit in a block's shared memory.
+// So K2 is four kernels on the stream, each parallel over its own output,
+// around two bf16 workspaces written once: h (N, Hp) and dl (N, Vp), Hp and
+// Vp the widths rounded up to 8 so that every row is a whole number of
+// 16-byte TMA units (2 x 268 MB at the eval shape).  The three products
+// are one GEMM mainloop (sm90_gemm.cuh: one producer thread issuing TMA
+// loads into an mbarrier ring, two consumer warpgroups on wgmma, the tile
+// handed to the epilogue through shared memory) with three problems that
+// differ in their tensor maps, tile sizes and epilogues.  dl and dh have
+// K = H or V = 1024, 16 k-blocks a 128 x 128 tile, so a block's pipeline
+// fill and epilogue weigh as much as its mainloop: they run two blocks an
+// SM (3 stages each), one hiding the other's.  dW has long k loops and
+// runs one 128 x 256 block an SM (4 stages).
+//   h pass:  h = bf16(tanh(bf16(enc + pred))), 16 bytes a thread: tanh is
+//     evaluated once per lattice element (the old dW pass redid it for
+//     every tile of V), and no pass keeps an h tile in shared memory, so
+//     no width caps H.
+//   dl pass: logits = h . W (A = h, K-major; B = W as stored, MN-major);
+//     the epilogue forms dl in place of the logits, stores it in bf16 with
+//     coalesced stores (zero in the padding columns) and adds the
+//     tile's column sums into db, one fp32 atomic per column per tile.
+//   dh pass: dh = dl . W^T over lattice patches of 16 t x 8 u: the A tile
+//     is two TMA boxes of a 4-D map over dl viewed as (B, T, U1, Vp), zero
+//     past T and U1; B = W's rows, K-major.  The epilogue reads h once,
+//     forms dpre = dh (1 - h^2) and sums it over the patch's u (denc) and t
+//     (dpred) in shared memory, then adds the sums with coalesced fp32
+//     atomics (16 + 8 rows of 128 per tile).
+//   dW pass: dW = h^T . dl (A = h, MN-major; B = dl, MN-major) over the
+//     32 output tiles at the eval widths, the rows split so that the grid
+//     fills the SMs once (4 ways: 128 blocks); each block adds its tile
+//     with coalesced fp32 atomics.
 // Atomics make the order of the sums change from run to run, so every
-// comparison with the plain version is a tolerance.  Ragged T and U1 need
-// no padding: the rows are flattened (or patched and masked).  wgmma and
-// TMA are later work.
+// comparison with the plain version is a tolerance.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "sm90_gemm.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int THREADS = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int WARPS_N = 4;
-constexpr int FRAG_M = 2;     // m16 blocks per warp
-constexpr int FRAG_N = 4;     // n8 blocks per warp
-constexpr int BM = 64;        // tile rows
-constexpr int BN = 128;       // tile columns
-constexpr int PAD = 8;        // bf16 padding per staged row (bank spread)
-
-// dl_kernel
-constexpr int K_SLAB = 64;    // rows of W per ring stage
-constexpr int STAGES = 3;
-constexpr int W_LD = BN + PAD;
-// dh_kernel / dw_kernel
-constexpr int BK = 32;        // depth of a staged slab
-constexpr int PT = 8;         // dh_kernel patch: PT t x PT u = BM rows
-constexpr int DP_LD = BN + 4;
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragments of one 16 x 16 step, from shared tiles in either layout.  A:
-// [m][k] (plain ldmatrix) or [k][m] (transposed); B: [k][n] (transposed)
-// or [n][k] (plain).  For B, r[0..1] are columns n0..n0+7, r[2..3] the
-// next eight.
-__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* s, int ld,
-                                       bool km, int m0, int k0, int lane) {
-  if (km)
-    ldmatrix_x4_trans(a, smem_addr(s + (size_t)(k0 + lane % 8 + (lane / 16) * 8) * ld +
-                                   m0 + ((lane / 8) % 2) * 8));
-  else
-    ldmatrix_x4(a, smem_addr(s + (size_t)(m0 + lane % 16) * ld + k0 + (lane / 16) * 8));
-}
-
-__device__ __forceinline__ void load_b(unsigned (&b)[4], const bf16* s, int ld,
-                                       bool nk, int k0, int n0, int lane) {
-  if (nk)
-    ldmatrix_x4(b, smem_addr(s + (size_t)(n0 + lane % 8 + (lane / 16) * 8) * ld +
-                             k0 + ((lane / 8) % 2) * 8));
-  else
-    ldmatrix_x4_trans(b, smem_addr(s + (size_t)(k0 + lane % 16) * ld + n0 +
-                                   (lane / 16) * 8));
-}
-
-// acc[fm][fn] += A[m_base + 16 fm, ka : ka + 16] . B[kb : kb + 16, n_base + 8 fn].
-__device__ __forceinline__ void warp_mma16(float (&acc)[FRAG_M][FRAG_N][4],
-                                           const bf16* As, int lda, bool a_km,
-                                           int ka, const bf16* Bs, int ldb,
-                                           bool b_nk, int kb, int m_base,
-                                           int n_base, int lane) {
-  unsigned a[FRAG_M][4];
-  unsigned b[FRAG_N / 2][4];
-#pragma unroll
-  for (int fm = 0; fm < FRAG_M; ++fm)
-    load_a(a[fm], As, lda, a_km, m_base + fm * 16, ka, lane);
-#pragma unroll
-  for (int fp = 0; fp < FRAG_N / 2; ++fp)
-    load_b(b[fp], Bs, ldb, b_nk, kb, n_base + fp * 16, lane);
-#pragma unroll
-  for (int fm = 0; fm < FRAG_M; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FRAG_N; ++fn)
-      mma_bf16(acc[fm][fn], a[fm], b[fn / 2][(fn % 2) * 2],
-               b[fn / 2][(fn % 2) * 2 + 1]);
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[FRAG_M][FRAG_N][4]) {
-#pragma unroll
-  for (int fm = 0; fm < FRAG_M; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FRAG_N; ++fn)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[fm][fn][q] = 0.f;
-}
+using sm90::BK;
+using sm90::BM;
+using sm90::BOX;
+using sm90::bf16;
+using sm90::ldp;
 
 // K1's rounding of tanh(enc + pred) on bf16 tensors: the sum rounded to
 // bf16, then tanh rounded to bf16.
@@ -178,457 +75,363 @@ __device__ __forceinline__ bf16 joint_h(bf16 e, bf16 p) {
   return __float2bfloat16(tanhf(s));
 }
 
-// Eight h values from eight enc and pred values (16-byte vectors).
-__device__ __forceinline__ uint4 joint_h8(const bf16* e, const bf16* p) {
-  const uint4 ev = *reinterpret_cast<const uint4*>(e);
-  const uint4 pv = *reinterpret_cast<const uint4*>(p);
-  const bf16* e8 = reinterpret_cast<const bf16*>(&ev);
-  const bf16* p8 = reinterpret_cast<const bf16*>(&pv);
-  uint4 out;
-  bf16* o8 = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o8[j] = joint_h(e8[j], p8[j]);
-  return out;
-}
+// ------------------------------- h pass -------------------------------
 
-// 8 bf16 from src[0..7] into dst, zero where !in or past `limit` elements;
-// by cp.async when vec (all 8 in range or none, 16-byte aligned).  src must
-// be a valid address even when !in (callers pass the array's base).
-__device__ __forceinline__ void load8(bf16* dst, const bf16* src, bool in,
-                                      int limit, bool vec) {
-  if (vec) {
-    cp_async16(dst, src, in ? 16 : 0);
-  } else {
+// One block per (b, t): enc's row is read once per block from L1, and
+// the only divisions are by the row's chunk count.
+__global__ void __launch_bounds__(256)
+h_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
+         bf16* __restrict__ h, int T, int U1, int Hp) {
+  const int bt = blockIdx.x;
+  const int chunks = Hp / 8;
+  const bf16* er = enc + (long long)bt * Hp;
+  const bf16* pr = pred + (long long)(bt / T) * U1 * Hp;
+  bf16* hr = h + (long long)bt * U1 * Hp;
+  for (int i = threadIdx.x; i < U1 * chunks; i += blockDim.x) {
+    const int u = i / chunks;
+    const int k = (i - u * chunks) * 8;
+    const uint4 ev = *reinterpret_cast<const uint4*>(er + k);
+    const uint4 pv = *reinterpret_cast<const uint4*>(pr + u * Hp + k);
+    const bf16* e8 = reinterpret_cast<const bf16*>(&ev);
+    const bf16* p8 = reinterpret_cast<const bf16*>(&pv);
+    uint4 out;
+    bf16* o8 = reinterpret_cast<bf16*>(&out);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      dst[j] = (in && j < limit) ? src[j] : __float2bfloat16(0.f);
+    for (int j = 0; j < 8; ++j) o8[j] = joint_h(e8[j], p8[j]);
+    *reinterpret_cast<uint4*>(hr + u * Hp + k) = out;
   }
 }
 
-// ------------------------- dl (and db) kernel -------------------------
+// ------------------------------- dl pass -------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-dl_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
-          const bf16* __restrict__ w, const float* __restrict__ bias,
-          const int* __restrict__ labels, const float* __restrict__ lse,
-          const float* __restrict__ g_blank, const float* __restrict__ g_label,
-          const float* __restrict__ g_lse, bf16* __restrict__ dl_out,
-          float* __restrict__ db, int B, int T, int U1, int H, int V,
-          int blank, float clamp, int h_ld, int vec_w, int vec_h) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h_s = reinterpret_cast<bf16*>(smem);
-  bf16* w_s = h_s + (size_t)BM * h_ld;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m_base = (warp / WARPS_N) * FRAG_M * 16;
-  const int n_base = (warp % WARPS_N) * FRAG_N * 8;
-  const long long n_rows = (long long)B * T * U1;
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int h_cols = h_ld - PAD;  // H rounded up to K_SLAB, zero-filled
-  const int S = h_cols / K_SLAB;
-  const int total = S * ((V + BN - 1) / BN);
-
-  auto load_slab = [&](int j) {
-    bf16* dst = w_s + (j % STAGES) * K_SLAB * W_LD;
-    const int k0 = (j % S) * K_SLAB;
-    const int n0 = (j / S) * BN;
-    for (int i = tid; i < K_SLAB * BN / 8; i += THREADS) {
-      const int kk = i / (BN / 8);
-      const int nn = (i % (BN / 8)) * 8;
-      const int k = k0 + kk, n = n0 + nn;
-      const bool in = k < H && n < V;
-      load8(dst + kk * W_LD + nn, in ? w + (size_t)k * V + n : w, in, V - n,
-            vec_w);
-    }
+struct DlPass {
+  static constexpr int BN = 128;
+  static constexpr int STAGES = 3;
+  // Two blocks an SM: one block's pipeline fill and epilogue run under
+  // the other's mainloop (16 k-blocks a tile at V or H = 1024).
+  static constexpr int CTAS = 2;
+  static constexpr bool A_MN = false;  // h rows, 64 k of H each
+  static constexpr bool B_MN = true;   // W (H, V) as stored: rows are k
+  static constexpr int GROUPS = sm90::CONSUMERS / (BN / 8);  // row groups
+  static constexpr int SCRATCH = GROUPS * BN;                // column sums
+  struct Params {
+    const float* bias;
+    const int* labels;
+    const float *lse, *g_blank, *g_label, *g_lse;
+    bf16* dl;
+    float* db;
+    long long n_rows;
+    int T, U1, V, Vp, blank, k_blocks, n_nt;
+    float clamp;
   };
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < total) load_slab(j);
-    cp_async_commit();
-  }
-
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const long long row = row0 + r;
-    bf16* hr = h_s + (size_t)r * h_ld;
-    if (row < n_rows) {
-      const long long bt = row / U1;
-      const bf16* er = enc + bt * H;
-      const bf16* pr = pred + ((bt / T) * U1 + row % U1) * H;
-      if (vec_h) {
-        for (int k = lane * 8; k < h_cols; k += 32 * 8)
-          *reinterpret_cast<uint4*>(hr + k) =
-              k < H ? joint_h8(er + k, pr + k) : make_uint4(0u, 0u, 0u, 0u);
-      } else {
-        for (int k = lane; k < h_cols; k += 32)
-          hr[k] = k < H ? joint_h(er[k], pr[k]) : __float2bfloat16(0.f);
-      }
-    } else {
-      for (int k = lane; k < h_cols; k += 32) hr[k] = __float2bfloat16(0.f);
-    }
-  }
-
-  // The lane's four rows: m_base + 16 fm + lane / 4 + 8 hh.
-  float r_lse[FRAG_M][2], r_gl[FRAG_M][2], r_gb[FRAG_M][2], r_ga[FRAG_M][2];
-  int r_lab[FRAG_M][2];
-  bool r_ok[FRAG_M][2];
-#pragma unroll
-  for (int fm = 0; fm < FRAG_M; ++fm)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long row = row0 + m_base + fm * 16 + lane / 4 + hh * 8;
-      const bool ok = row < n_rows;
-      r_ok[fm][hh] = ok;
-      r_lse[fm][hh] = ok ? lse[row] : 0.f;
-      r_gl[fm][hh] = ok ? g_lse[row] : 0.f;
-      r_gb[fm][hh] = ok ? g_blank[row] : 0.f;
-      r_ga[fm][hh] = ok ? g_label[row] : 0.f;
-      r_lab[fm][hh] = ok ? labels[(row / U1 / T) * U1 + row % U1] : -1;
-    }
-
-  float acc[FRAG_M][FRAG_N][4];
-  for (int i = 0; i < total; ++i) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (i + STAGES - 1 < total) load_slab(i + STAGES - 1);
-    cp_async_commit();
-    const int slab = i % S;
-    if (slab == 0) zero_acc(acc);
-    const bf16* ws = w_s + (i % STAGES) * K_SLAB * W_LD;
-#pragma unroll
-    for (int kk = 0; kk < K_SLAB; kk += 16)
-      warp_mma16(acc, h_s, h_ld, false, slab * K_SLAB + kk, ws, W_LD, false,
-                 kk, m_base, n_base, lane);
-    if (slab != S - 1) continue;
-
-    // The chunk's logits are complete in registers: form dl.
-    const int n0 = (i / S) * BN;
-    float csum[FRAG_N][2];
-#pragma unroll
-    for (int fn = 0; fn < FRAG_N; ++fn) csum[fn][0] = csum[fn][1] = 0.f;
-#pragma unroll
-    for (int fm = 0; fm < FRAG_M; ++fm)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        if (!r_ok[fm][hh]) continue;
-        const long long row = row0 + m_base + fm * 16 + lane / 4 + hh * 8;
-#pragma unroll
-        for (int fn = 0; fn < FRAG_N; ++fn) {
-          const int c0 = n0 + n_base + fn * 8 + (lane % 4) * 2;
-          float d[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = c0 + e;
-            d[e] = 0.f;
-            if (c < V) {
-              const float x = acc[fm][fn][hh * 2 + e] + bias[c];
-              float v = r_gl[fm][hh] * expf(x - r_lse[fm][hh]);
-              if (c == blank) v += r_gb[fm][hh];
-              if (c == r_lab[fm][hh]) v += r_ga[fm][hh];
-              if (clamp > 0.f) v = fminf(fmaxf(v, -clamp), clamp);
-              d[e] = v;
-              csum[fn][e] += v;
-            }
-          }
-          bf16* out = dl_out + row * V + c0;
-          if (c0 + 1 < V && V % 2 == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(out) =
-                __floats2bfloat162_rn(d[0], d[1]);
-          } else if (c0 < V) {
-            out[0] = __float2bfloat16(d[0]);
-            if (c0 + 1 < V) out[1] = __float2bfloat16(d[1]);
-          }
-        }
-      }
-    // Column sums over the warp's 32 rows (lanes with equal lane % 4 hold
-    // the same columns), then one atomic per column per warp.
-#pragma unroll
-    for (int fn = 0; fn < FRAG_N; ++fn)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s = csum[fn][e];
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        const int c = n0 + n_base + fn * 8 + lane * 2 + e;
-        if (lane < 4 && c < V) atomicAdd(db + c, s);
-      }
-  }
-  cp_async_wait<0>();
-}
-
-// ----------------------- dh (denc, dpred) kernel -----------------------
-
-__global__ void __launch_bounds__(THREADS)
-dh_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
-          const bf16* __restrict__ w, const bf16* __restrict__ dl,
-          float* __restrict__ denc, float* __restrict__ dpred, int T, int U1,
-          int H, int V, int vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);         // 2 x [BM][BK + PAD]
-  bf16* b_s = a_s + 2 * BM * (BK + PAD);             // 2 x [BN][BK + PAD]
-  float* dp_s = reinterpret_cast<float*>(b_s + 2 * BN * (BK + PAD));  // [BM][DP_LD]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m_base = (warp / WARPS_N) * FRAG_M * 16;
-  const int n_base = (warp % WARPS_N) * FRAG_N * 8;
-  const int n_tu = (U1 + PT - 1) / PT;
-  const int n_tt = (T + PT - 1) / PT;
-  const int b = blockIdx.x / (n_tt * n_tu);
-  const int ti = (blockIdx.x / n_tu) % n_tt;
-  const int ui = blockIdx.x % n_tu;
-  const int h0 = blockIdx.y * BN;
-
-  auto load = [&](int s) {
-    const int k0 = s * BK;
-    bf16* as = a_s + (s % 2) * BM * (BK + PAD);
-    bf16* bs = b_s + (s % 2) * BN * (BK + PAD);
-    {  // dl rows of the patch: BM rows x BK columns, one piece per thread
-      const int r = tid / (BK / 8), pc = (tid % (BK / 8)) * 8;
-      const int t = ti * PT + r / PT, u = ui * PT + r % PT;
-      const bool ok = t < T && u < U1 && k0 + pc < V;
-      const long long row = ((long long)b * T + t) * U1 + u;
-      load8(as + r * (BK + PAD) + pc, dl + (ok ? row * V + k0 + pc : 0), ok,
-            V - k0 - pc, vec);
-    }
-    for (int i = tid; i < BN * BK / 8; i += THREADS) {  // W rows h0.. (n x k)
-      const int n = i / (BK / 8), pc = (i % (BK / 8)) * 8;
-      const bool ok = h0 + n < H && k0 + pc < V;
-      load8(bs + n * (BK + PAD) + pc, w + (ok ? (size_t)(h0 + n) * V + k0 + pc : 0),
-            ok, V - k0 - pc, vec);
-    }
+  struct Tile {
+    long long m0;
+    int n0, k_blocks;
   };
-
-  float acc[FRAG_M][FRAG_N][4];
-  zero_acc(acc);
-  const int n_slabs = (V + BK - 1) / BK;
-  load(0);
-  cp_async_commit();
-  for (int s = 0; s < n_slabs; ++s) {
-    if (s + 1 < n_slabs) load(s + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* as = a_s + (s % 2) * BM * (BK + PAD);
-    const bf16* bs = b_s + (s % 2) * BN * (BK + PAD);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)
-      warp_mma16(acc, as, BK + PAD, false, kk, bs, BK + PAD, true, kk, m_base,
-                 n_base, lane);
-    __syncthreads();
+  // Blocks walk V first, so the V tiles of one row tile (which share its
+  // h rows) run together.
+  static __device__ Tile tile(const Params& p) {
+    return {(long long)(blockIdx.x / p.n_nt) * BM, (int)(blockIdx.x % p.n_nt) * BN,
+            p.k_blocks};
   }
-  cp_async_wait<0>();
-
-  // dpre = dh (1 - h^2) into shared memory, zero off the lattice.
+  static __device__ void load_a(const CUtensorMap* map, const Params&, const Tile& t,
+                                int kb, int j, bf16* dst, uint64_t* bar) {
+    sm90::tma_load_2d(dst, map, bar, kb * BK, (int)(t.m0 + j * BOX));
+  }
+  static __device__ void load_b(const CUtensorMap* map, const Params&, const Tile& t,
+                                int kb, int j, bf16* dst, uint64_t* bar) {
+    sm90::tma_load_2d(dst, map, bar, t.n0 + j * BOX, kb * BK);
+  }
+  // Thread = 8 columns x every GROUPS-th row of the tile; the rows' scalars
+  // are loaded together first, so that their latencies overlap.
+  static __device__ void epilogue(const Params& p, const Tile& t, float* acc,
+                                  float* scratch, int tid) {
+    constexpr int ROWS = BM / GROUPS;
+    const int cc = (tid % (BN / 8)) * 8;
+    const int c0 = t.n0 + cc;
+    const int r0 = tid / (BN / 8);
+    float bias[8], csum[8];
 #pragma unroll
-  for (int fm = 0; fm < FRAG_M; ++fm)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = m_base + fm * 16 + lane / 4 + hh * 8;
-      const int t = ti * PT + r / PT, u = ui * PT + r % PT;
-      const bool ok = t < T && u < U1;
-      const bf16* er = enc + ((long long)b * T + t) * H;
-      const bf16* pr = pred + ((long long)b * U1 + u) * H;
-#pragma unroll
-      for (int fn = 0; fn < FRAG_N; ++fn)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n_base + fn * 8 + (lane % 4) * 2 + e;
-          float v = 0.f;
-          if (ok && h0 + c < H) {
-            const float h = __bfloat162float(joint_h(er[h0 + c], pr[h0 + c]));
-            v = acc[fm][fn][hh * 2 + e] * (1.f - h * h);
-          }
-          dp_s[r * DP_LD + c] = v;
-        }
+    for (int e = 0; e < 8; ++e) {
+      bias[e] = c0 + e < p.V ? p.bias[c0 + e] : 0.f;
+      csum[e] = 0.f;
     }
-  __syncthreads();
-
-  // Sums over the patch's u (denc) and t (dpred); thread = column x half.
-  const int c = tid % BN;
-  const int half = tid / BN;
-  if (h0 + c < H) {
-    for (int i = half * (PT / 2); i < (half + 1) * (PT / 2); ++i) {
-      const int t = ti * PT + i;
-      const int u = ui * PT + i;
-      float se = 0.f, sp = 0.f;
+    float lse[ROWS], gl[ROWS], gb[ROWS], ga[ROWS];
+    int lab[ROWS];
 #pragma unroll
-      for (int j = 0; j < PT; ++j) {
-        se += dp_s[(i * PT + j) * DP_LD + c];
-        sp += dp_s[(j * PT + i) * DP_LD + c];
+    for (int i = 0; i < ROWS; ++i) {
+      const long long row = t.m0 + r0 + i * GROUPS;
+      const bool ok = row < p.n_rows;
+      const int rw = ok ? (int)row : 0;  // the host keeps rows below 2^31
+      lse[i] = ok ? p.lse[rw] : 0.f;
+      gl[i] = ok ? p.g_lse[rw] : 0.f;
+      gb[i] = ok ? p.g_blank[rw] : 0.f;
+      ga[i] = ok ? p.g_label[rw] : 0.f;
+      lab[i] = ok ? p.labels[rw / (p.T * p.U1) * p.U1 + rw % p.U1] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = r0 + i * GROUPS;
+      const long long row = t.m0 + r;
+      if (row >= p.n_rows || c0 >= p.Vp) continue;
+      const float4 x0 = *reinterpret_cast<const float4*>(acc + r * ldp(BN) + cc);
+      const float4 x1 = *reinterpret_cast<const float4*>(acc + r * ldp(BN) + cc + 4);
+      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      uint4 out;
+      bf16* o8 = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = c0 + e;
+        float v = 0.f;
+        if (c < p.V) {
+          v = gl[i] * expf(x[e] + bias[e] - lse[i]);
+          if (c == p.blank) v += gb[i];
+          if (c == lab[i]) v += ga[i];
+          if (p.clamp > 0.f) v = fminf(fmaxf(v, -p.clamp), p.clamp);
+        }
+        csum[e] += v;
+        o8[e] = __float2bfloat16(v);
       }
-      if (t < T) atomicAdd(denc + ((long long)b * T + t) * H + h0 + c, se);
-      if (u < U1) atomicAdd(dpred + ((long long)b * U1 + u) * H + h0 + c, sp);
+      *reinterpret_cast<uint4*>(p.dl + row * p.Vp + c0) = out;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) scratch[(tid / (BN / 8)) * BN + cc + e] = csum[e];
+    sm90::consumer_sync();
+    if (tid < BN && t.n0 + tid < p.V) {
+      float s = 0.f;
+      for (int g = 0; g < GROUPS; ++g) s += scratch[g * BN + tid];
+      atomicAdd(p.db + t.n0 + tid, s);
     }
   }
-}
+};
 
-// ---------------------------- dW kernel ----------------------------
+// ------------------------------- dh pass -------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-dw_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
-          const bf16* __restrict__ dl, float* __restrict__ dw, int T, int U1,
-          long long n_rows, int H, int V, long long rows_per_split, int vec_h,
-          int vec) {
-  __shared__ __align__(128) bf16 a_s[2][BK][BM + PAD];  // h slab, [row][h]
-  __shared__ __align__(128) bf16 b_s[2][BK][BN + PAD];  // dl slab, [row][v]
+constexpr int PT = 16;  // patch: PT t x PU u = BM rows, row = t_local * PU + u_local
+constexpr int PU = 8;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m_base = (warp / WARPS_N) * FRAG_M * 16;
-  const int n_base = (warp % WARPS_N) * FRAG_N * 8;
-  const int n_vt = (V + BN - 1) / BN;
-  const int hm0 = (blockIdx.x / n_vt) * BM;
-  const int v0 = (blockIdx.x % n_vt) * BN;
-  const long long r_begin = (long long)blockIdx.y * rows_per_split;
-  const long long r_end = min(n_rows, r_begin + rows_per_split);
-  if (r_begin >= r_end) return;
-  const int n_slabs = (int)((r_end - r_begin + BK - 1) / BK);
-
-  auto load = [&](int s) {
-    const long long rs = r_begin + (long long)s * BK;
-    {  // h: BK rows x BM columns of H, one 8-wide piece per thread
-      const int kk = tid / (BM / 8), pc = (tid % (BM / 8)) * 8;
-      const long long row = rs + kk;
-      bf16* dst = &a_s[s % 2][kk][pc];
-      const int hc = hm0 + pc;
-      if (row < r_end && hc < H) {
-        const long long bt = row / U1;
-        const bf16* er = enc + bt * H + hc;
-        const bf16* pr = pred + ((bt / T) * U1 + row % U1) * H + hc;
-        if (vec_h) {
-          *reinterpret_cast<uint4*>(dst) = joint_h8(er, pr);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            dst[j] = hc + j < H ? joint_h(er[j], pr[j]) : __float2bfloat16(0.f);
-        }
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    for (int i = tid; i < BK * BN / 8; i += THREADS) {  // dl: BK rows x BN
-      const int kk = i / (BN / 8), pc = (i % (BN / 8)) * 8;
-      const long long row = rs + kk;
-      const bool ok = row < r_end && v0 + pc < V;
-      load8(&b_s[s % 2][kk][pc], dl + (ok ? row * V + v0 + pc : 0), ok,
-            V - v0 - pc, vec);
-    }
+struct DhPass {
+  static constexpr int BN = 128;
+  static constexpr int STAGES = 3;
+  static constexpr int CTAS = 2;  // as DlPass's
+  static constexpr bool A_MN = false;  // dl rows, 64 k of V each
+  static constexpr bool B_MN = false;  // W's rows h, 64 k of V each
+  static constexpr int SCRATCH = 0;
+  struct Params {
+    const bf16* h;
+    float *denc, *dpred;
+    int T, U1, Hp, k_blocks, n_t, n_u, n_ht;
   };
-
-  float acc[FRAG_M][FRAG_N][4];
-  zero_acc(acc);
-  load(0);
-  cp_async_commit();
-  for (int s = 0; s < n_slabs; ++s) {
-    if (s + 1 < n_slabs) load(s + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)
-      warp_mma16(acc, &a_s[s % 2][0][0], BM + PAD, true, kk, &b_s[s % 2][0][0],
-                 BN + PAD, false, kk, m_base, n_base, lane);
-    __syncthreads();
+  struct Tile {
+    int b, t0, u0, h0, k_blocks;
+  };
+  // Blocks walk H first, so the H tiles of one patch (which share its dl
+  // rows) run together.
+  static __device__ Tile tile(const Params& p) {
+    const int q = blockIdx.x / p.n_ht;
+    return {q / (p.n_t * p.n_u), (q / p.n_u) % p.n_t * PT, q % p.n_u * PU,
+            (int)(blockIdx.x % p.n_ht) * BN, p.k_blocks};
   }
-  cp_async_wait<0>();
-
+  static __device__ void load_a(const CUtensorMap* map, const Params&, const Tile& t,
+                                int kb, int j, bf16* dst, uint64_t* bar) {
+    sm90::tma_load_4d(dst, map, bar, kb * BK, t.u0, t.t0 + j * (PT / 2), t.b);
+  }
+  static __device__ void load_b(const CUtensorMap* map, const Params&, const Tile& t,
+                                int kb, int j, bf16* dst, uint64_t* bar) {
+    sm90::tma_load_2d(dst, map, bar, kb * BK, t.h0 + j * BOX);
+  }
+  static __device__ void epilogue(const Params& p, const Tile& t, float* acc, float*,
+                                  int tid) {
+    // dpre = dh (1 - h^2) in place; thread = 4 columns (a float4, so that
+    // a warp's accesses cover one row without bank conflicts, its h read 8
+    // bytes a lane) of every GROUPS-th row, 8 rows' h loads issued first.
+    // Rows off the lattice hold dh = 0 (TMA zero-filled their dl).
+    constexpr int GROUPS = sm90::CONSUMERS / (BN / 4);
+    constexpr int ROWS = BM / GROUPS;
+    constexpr int BATCH = 8;
+    const int cc = (tid % (BN / 4)) * 4;
+    const int r0 = tid / (BN / 4);
 #pragma unroll
-  for (int fm = 0; fm < FRAG_M; ++fm)
+    for (int i0 = 0; i0 < ROWS; i0 += BATCH) {
+      uint2 hv[BATCH];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int h = hm0 + m_base + fm * 16 + lane / 4 + hh * 8;
-      if (h >= H) continue;
-#pragma unroll
-      for (int fn = 0; fn < FRAG_N; ++fn)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int v = v0 + n_base + fn * 8 + (lane % 4) * 2 + e;
-          if (v < V) atomicAdd(dw + (size_t)h * V + v, acc[fm][fn][hh * 2 + e]);
+      for (int i = 0; i < BATCH; ++i) {
+        const int r = r0 + (i0 + i) * GROUPS;
+        const int tt = t.t0 + r / PU, u = t.u0 + r % PU;
+        hv[i] = make_uint2(0u, 0u);
+        if (tt < p.T && u < p.U1 && t.h0 + cc < p.Hp) {
+          const long long row = ((long long)t.b * p.T + tt) * p.U1 + u;
+          hv[i] = *reinterpret_cast<const uint2*>(p.h + row * p.Hp + t.h0 + cc);
         }
+      }
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const bf16* h4 = reinterpret_cast<const bf16*>(&hv[i]);
+        float4* a = reinterpret_cast<float4*>(acc + (r0 + (i0 + i) * GROUPS) * ldp(BN) + cc);
+        float4 v = *a;
+        float hf = __bfloat162float(h4[0]);
+        v.x *= 1.f - hf * hf;
+        hf = __bfloat162float(h4[1]);
+        v.y *= 1.f - hf * hf;
+        hf = __bfloat162float(h4[2]);
+        v.z *= 1.f - hf * hf;
+        hf = __bfloat162float(h4[3]);
+        v.w *= 1.f - hf * hf;
+        *a = v;
+      }
     }
-}
+    sm90::consumer_sync();
+    // Sums over the patch's u (denc) and t (dpred); thread = column x group.
+    constexpr int G = sm90::CONSUMERS / BN;
+    const int c = tid % BN, g = tid / BN;
+    if (t.h0 + c >= p.Hp) return;
+    for (int i = g * (PT / G); i < (g + 1) * (PT / G); ++i) {
+      const int tt = t.t0 + i;
+      if (tt >= p.T) break;
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < PU; ++u) s += acc[(i * PU + u) * ldp(BN) + c];
+      atomicAdd(p.denc + ((long long)t.b * p.T + tt) * p.Hp + t.h0 + c, s);
+    }
+    for (int u = g * (PU / G); u < (g + 1) * (PU / G); ++u) {
+      if (t.u0 + u >= p.U1) break;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < PT; ++i) s += acc[(i * PU + u) * ldp(BN) + c];
+      atomicAdd(p.dpred + ((long long)t.b * p.U1 + t.u0 + u) * p.Hp + t.h0 + c, s);
+    }
+  }
+};
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
+// ------------------------------- dW pass -------------------------------
+
+struct DwPass {
+  static constexpr int BN = 256;
+  static constexpr int STAGES = 4;
+  static constexpr int CTAS = 1;  // long k loops: the fill is paid once
+  static constexpr bool A_MN = true;  // h (N, Hp): rows are k
+  static constexpr bool B_MN = true;  // dl (N, Vp): rows are k
+  static constexpr int SCRATCH = 0;
+  struct Params {
+    float* dw;
+    long long n_rows, rows_per_split;
+    int Hp, Vp, n_vt;
+  };
+  struct Tile {
+    long long k0;
+    int m0, n0, k_blocks;
+  };
+  static __device__ Tile tile(const Params& p) {
+    const long long k0 = (long long)blockIdx.y * p.rows_per_split;
+    const long long rest = p.n_rows - k0;
+    const long long len = rest < p.rows_per_split ? rest : p.rows_per_split;
+    return {k0, (int)blockIdx.x / p.n_vt * BM, (int)blockIdx.x % p.n_vt * BN,
+            (int)((len + BK - 1) / BK)};
+  }
+  static __device__ void load_a(const CUtensorMap* map, const Params&, const Tile& t,
+                                int kb, int j, bf16* dst, uint64_t* bar) {
+    sm90::tma_load_2d(dst, map, bar, t.m0 + j * BOX, (int)(t.k0 + kb * BK));
+  }
+  static __device__ void load_b(const CUtensorMap* map, const Params&, const Tile& t,
+                                int kb, int j, bf16* dst, uint64_t* bar) {
+    sm90::tma_load_2d(dst, map, bar, t.n0 + j * BOX, (int)(t.k0 + kb * BK));
+  }
+  static __device__ void epilogue(const Params& p, const Tile& t, float* acc, float*,
+                                  int tid) {
+    const int c = tid % BN;
+    if (t.n0 + c >= p.Vp) return;
+    for (int r = tid / BN; r < BM && t.m0 + r < p.Hp; r += sm90::CONSUMERS / BN)
+      atomicAdd(p.dw + (long long)(t.m0 + r) * p.Vp + t.n0 + c, acc[r * ldp(BN) + c]);
+  }
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// enc (B, T, H), pred (B, U1, H), w (H, V): bf16 contiguous; bias (V,)
-// float32; labels (B, U1) int32; lse, g_blank, g_label, g_lse (B, T, U1)
-// float32; dl_ws: a (B*T*U1, V) bf16 workspace.  denc (B, T, H), dpred
-// (B, U1, H), dw (H, V), db (V,): float32, ZEROED by the caller (the
-// kernels add into them).  grad_clamp <= 0: no clamp.  Returns the first
-// CUDA error of the three launches, or cudaErrorInvalidValue when H is too
-// wide for dl_kernel's shared memory.
+// enc (B, T, Hp), pred (B, U1, Hp), w (Hp, Vp): bf16 contiguous, zero past
+// the model's H and V (Hp, Vp multiples of 8); bias (V,) float32; labels
+// (B, U1) int32; lse, g_blank, g_label, g_lse (B, T, U1) float32; h_ws
+// (B*T*U1, Hp) and dl_ws (B*T*U1, Vp) bf16 workspaces.  denc (B, T, Hp),
+// dpred (B, U1, Hp), dw (Hp, Vp), db (V,): float32, ZEROED by the caller
+// (the passes add into them).  grad_clamp <= 0: no clamp.  Every bf16
+// pointer 16-byte aligned.  Returns the first CUDA error of the launches,
+// or cudaErrorInvalidValue for a layout the tensor maps cannot take.
 extern "C" int rnnt_joint_bwd(const void* enc, const void* pred, const void* w,
-                              const void* bias, const void* labels,
-                              const void* lse, const void* g_blank,
-                              const void* g_label, const void* g_lse,
-                              void* dl_ws, void* denc, void* dpred, void* dw,
-                              void* db, int B, int T, int U1, int H, int V,
-                              int blank, float grad_clamp, void* stream) {
+                              const void* bias, const void* labels, const void* lse,
+                              const void* g_blank, const void* g_label,
+                              const void* g_lse, void* h_ws, void* dl_ws, void* denc,
+                              void* dpred, void* dw, void* db, int B, int T, int U1,
+                              int Hp, int V, int Vp, int blank, float grad_clamp,
+                              void* stream) {
   const long long n_rows = (long long)B * T * U1;
-  if (n_rows <= 0 || V <= 0 || H <= 0) return 0;
-  int dev = 0, max_smem = 0, n_sm = 0;
+  if (n_rows <= 0 || V <= 0 || Hp <= 0) return 0;
+  // TMA coordinates and the grids are 32-bit.
+  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || !aligned16(enc) ||
+      !aligned16(pred) ||
+      !aligned16(w) || !aligned16(h_ws) || !aligned16(dl_ws))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* e = static_cast<const bf16*>(enc);
-  const bf16* p = static_cast<const bf16*>(pred);
-  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* h = static_cast<bf16*>(h_ws);
   bf16* dl = static_cast<bf16*>(dl_ws);
-  const int vec_h = H % 8 == 0 && aligned16(enc) && aligned16(pred);
-  const int vec_w = V % 8 == 0 && aligned16(w);
-  const int vec_dl = V % 8 == 0 && aligned16(dl_ws) && vec_w;
+
+  // 0. h, once.
+  h_kernel<<<(unsigned)(B * T), 256, 0, s>>>(static_cast<const bf16*>(enc),
+                                             static_cast<const bf16*>(pred), h, T, U1, Hp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  // The tensor maps: h and dl as 2-D (row-major), W, and dl as (B, T, U1, Vp).
+  const uint32_t box2[2] = {BOX, BOX};
+  const uint32_t box4[4] = {BOX, PU, PT / 2, 1};
+  CUtensorMap map_h, map_w, map_dl, map_dl4;
+  const uint64_t dims_h[2] = {(uint64_t)Hp, (uint64_t)n_rows};
+  const uint64_t str_h[1] = {(uint64_t)Hp * 2};
+  const uint64_t dims_w[2] = {(uint64_t)Vp, (uint64_t)Hp};
+  const uint64_t str_w[1] = {(uint64_t)Vp * 2};
+  const uint64_t dims_dl[2] = {(uint64_t)Vp, (uint64_t)n_rows};
+  const uint64_t dims_dl4[4] = {(uint64_t)Vp, (uint64_t)U1, (uint64_t)T, (uint64_t)B};
+  const uint64_t str_dl4[3] = {(uint64_t)Vp * 2, (uint64_t)U1 * Vp * 2,
+                               (uint64_t)T * U1 * Vp * 2};
+  if (!sm90::encode_map(&map_h, h, 2, dims_h, str_h, box2) ||
+      !sm90::encode_map(&map_w, w, 2, dims_w, str_w, box2) ||
+      !sm90::encode_map(&map_dl, dl, 2, dims_dl, str_w, box2) ||
+      !sm90::encode_map(&map_dl4, dl, 4, dims_dl4, str_dl4, box4))
+    return (int)cudaErrorInvalidValue;
 
   // 1. dl and db.
-  const int h_ld = round_up(H, K_SLAB) + PAD;
-  const size_t smem1 = (size_t)BM * h_ld * 2 + (size_t)STAGES * K_SLAB * W_LD * 2;
-  if (smem1 > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(dl_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem1);
+  const int n_nt = (Vp + DlPass::BN - 1) / DlPass::BN;
+  DlPass::Params dlp{static_cast<const float*>(bias), static_cast<const int*>(labels),
+                     static_cast<const float*>(lse), static_cast<const float*>(g_blank),
+                     static_cast<const float*>(g_label), static_cast<const float*>(g_lse),
+                     dl, static_cast<float*>(db), n_rows, T, U1, V, Vp, blank,
+                     (Hp + BK - 1) / BK, n_nt, grad_clamp};
+  err = sm90::launch_gemm<DlPass>(map_h, map_w, dlp,
+                                  dim3((unsigned)((n_rows + BM - 1) / BM * n_nt)), s);
   if (err != cudaSuccess) return (int)err;
-  dl_kernel<<<(unsigned)((n_rows + BM - 1) / BM), THREADS, smem1, s>>>(
-      e, p, wb, static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse),
-      static_cast<const float*>(g_blank), static_cast<const float*>(g_label),
-      static_cast<const float*>(g_lse), dl, static_cast<float*>(db), B, T, U1,
-      H, V, blank, grad_clamp, h_ld, vec_w, vec_h);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  // 2. dh -> denc, dpred.
-  const size_t smem2 = (size_t)2 * (BM + BN) * (BK + PAD) * 2 + (size_t)BM * DP_LD * 4;
-  err = cudaFuncSetAttribute(dh_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
+  // 2. dh -> denc, dpred, over (16 t x 8 u) patches.
+  DhPass::Params dhp{h, static_cast<float*>(denc), static_cast<float*>(dpred), T, U1, Hp,
+                     (Vp + BK - 1) / BK, (T + PT - 1) / PT, (U1 + PU - 1) / PU,
+                     (Hp + DhPass::BN - 1) / DhPass::BN};
+  const long long patches = (long long)B * dhp.n_t * dhp.n_u;
+  err = sm90::launch_gemm<DhPass>(map_dl4, map_w, dhp,
+                                  dim3((unsigned)(patches * dhp.n_ht)), s);
   if (err != cudaSuccess) return (int)err;
-  const long long patches =
-      (long long)B * ((T + PT - 1) / PT) * ((U1 + PT - 1) / PT);
-  dh_kernel<<<dim3((unsigned)patches, (unsigned)((H + BN - 1) / BN)), THREADS,
-              smem2, s>>>(e, p, wb, dl, static_cast<float*>(denc),
-                          static_cast<float*>(dpred), T, U1, H, V, vec_dl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  // 3. dW, the rows split so that ~4 blocks run per SM.
-  const int tiles = ((H + BM - 1) / BM) * ((V + BN - 1) / BN);
-  long long splits = (4LL * n_sm + tiles - 1) / tiles;
+  // 3. dW, the rows split so that the grid fills the SMs about once.
+  const int n_vt = (Vp + DwPass::BN - 1) / DwPass::BN;
+  const int tiles = (Hp + BM - 1) / BM * n_vt;
+  long long splits = std::max(1, n_sm / tiles);
   splits = std::min(splits, std::max(1LL, n_rows / (8 * BK)));
   long long per = (n_rows + splits - 1) / splits;
   per = (per + BK - 1) / BK * BK;
   splits = (n_rows + per - 1) / per;
-  dw_kernel<<<dim3((unsigned)tiles, (unsigned)splits), THREADS, 0, s>>>(
-      e, p, dl, static_cast<float*>(dw), T, U1, n_rows, H, V, per, vec_h,
-      vec_dl);
-  return (int)cudaGetLastError();
+  DwPass::Params dwp{static_cast<float*>(dw), n_rows, per, Hp, Vp, n_vt};
+  return (int)sm90::launch_gemm<DwPass>(map_h, map_dl, dwp,
+                                        dim3((unsigned)tiles, (unsigned)splits), s);
 }

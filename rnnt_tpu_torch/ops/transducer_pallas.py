@@ -30,8 +30,10 @@ K2 replaces ``rnnt_tpu/ops/transducer_pallas.py:155`` ``_bwd_kernel``
 three cotangents it recomputes the logits, forms d(loss)/d(logits)
 (optionally clamped) and returns denc, dpred, dW and db in float32.  Bound
 on an H100: operations, three products of 2*B*T*U1*H*V flops (0.83 ms at
-the eval shape).  The kernel (``csrc/joint_bwd.cu``) runs them as three
-mma.sync passes around a bf16 dl workspace; see the source.
+the eval shape).  The kernel (``csrc/joint_bwd.cu``) writes h once to a
+bf16 workspace, then runs the three products on one TMA-fed wgmma GEMM
+mainloop (``csrc/sm90_gemm.cuh``) around a bf16 dl workspace; see the
+source.
 ``fused_joint_bwd_plain`` is its plain version and ``fused_joint_backward``
 its wrapper (``K2.launches``).  ``fused_joint_outputs`` is the autograd
 Function over the pair, as ``fused_joint_outputs`` with its custom VJP is in
@@ -55,7 +57,7 @@ K1 = CudaKernel(
     replaces="rnnt_tpu/ops/transducer_pallas.py:65 _fwd_kernel")
 K2 = CudaKernel(
     "joint_bwd", "rnnt_joint_bwd",
-    [_P] * 14 + [_I] * 6 + [ctypes.c_float, _P],
+    [_P] * 15 + [_I] * 7 + [ctypes.c_float, _P],
     replaces="rnnt_tpu/ops/transducer_pallas.py:155 _bwd_kernel")
 
 
@@ -155,18 +157,46 @@ def fused_joint_backward(enc, pred, w, b, labels, blank: int, lse, g_blank,
                                      g_blank, g_label, g_lse, grad_clamp)
     if enc.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA or the CPU, got {enc.device}")
+    return _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank,
+                                  g_label, g_lse, grad_clamp)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy when its data does not start on 16 bytes (a TMA
+    base must)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank, g_label,
+                           g_lse, grad_clamp):
+    """K2's launch.  Its tensor maps need rows of a multiple of 16 bytes:
+    where H or V is not a multiple of 8, enc, pred and W are copied into
+    zero-padded buffers of width Hp and Vp (no config has such widths), and
+    the outputs are cropped back.  h (N, Hp) and dl (N, Vp), N = B*T*U1,
+    are bf16 workspaces."""
     B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank)
     dev = enc.device
     for name, x in (("lse", lse), ("g_blank", g_blank), ("g_label", g_label),
                     ("g_lse", g_lse)):
         check_cuda_tensor(name, x, torch.float32, (B, T, U1), dev)
-    dl_ws = torch.empty((B * T * U1, V), dtype=torch.bfloat16, device=dev)
-    denc = torch.zeros((B, T, H), dtype=torch.float32, device=dev)
-    dpred = torch.zeros((B, U1, H), dtype=torch.float32, device=dev)
-    dw = torch.zeros((H, V), dtype=torch.float32, device=dev)
+    Hp, Vp = -(-H // 8) * 8, -(-V // 8) * 8
+    if Hp != H:
+        enc = torch.nn.functional.pad(enc, (0, Hp - H))
+        pred = torch.nn.functional.pad(pred, (0, Hp - H))
+    if Hp != H or Vp != V:
+        w = torch.nn.functional.pad(w, (0, Vp - V, 0, Hp - H))
+    enc, pred, w = _aligned(enc), _aligned(pred), _aligned(w)
+    h_ws = torch.empty((B * T * U1, Hp), dtype=torch.bfloat16, device=dev)
+    dl_ws = torch.empty((B * T * U1, Vp), dtype=torch.bfloat16, device=dev)
+    denc = torch.zeros((B, T, Hp), dtype=torch.float32, device=dev)
+    dpred = torch.zeros((B, U1, Hp), dtype=torch.float32, device=dev)
+    dw = torch.zeros((Hp, Vp), dtype=torch.float32, device=dev)
     db = torch.zeros((V,), dtype=torch.float32, device=dev)
-    K2.launch(enc, pred, w, b, labels, lse, g_blank, g_label, g_lse, dl_ws,
-              denc, dpred, dw, db, B, T, U1, H, V, blank, float(grad_clamp))
+    K2.launch(enc, pred, w, b, labels, lse, g_blank, g_label, g_lse, h_ws, dl_ws,
+              denc, dpred, dw, db, B, T, U1, Hp, V, Vp, blank, float(grad_clamp))
+    if Hp != H or Vp != V:
+        denc, dpred, dw = (x.contiguous() for x in (denc[..., :H], dpred[..., :H],
+                                                     dw[:H, :V]))
     return denc, dpred, dw, db
 
 

@@ -113,11 +113,13 @@ def _rel_l2(got, want):
 
 
 @pytest.mark.parametrize("shape,clamp", [
-    ((2, 19, 7, 64, 48), -1.0),       # one partial V chunk
-    ((1, 5, 13, 100, 1000), -1.0),    # H % 8 != 0: scalar h loads
-    ((2, 9, 5, 36, 37), 0.05),        # V % 8 != 0, clamp on
+    ((2, 19, 7, 64, 48), -1.0),       # one partial tile of V and of H
+    ((1, 5, 13, 100, 1000), -1.0),    # H % 8 != 0: enc, pred, W zero-padded
+    ((2, 9, 5, 36, 37), 0.05),        # H, V % 8 != 0, clamp on
     ((3, 33, 65, 1024, 1024), -1.0),  # the eval widths, ragged patches
     ((128, 16, 16, 1024, 1024), 0.01),  # the banded patches, clamp on
+    ((2, 32, 17, 2048, 1024), -1.0),  # scaled_tp's joint width
+    ((2, 32, 17, 2048, 1024), 0.01),
 ])
 def test_k2_matches_plain(cuda, shape, clamp):
     B, T, U1, H, V = shape

@@ -144,20 +144,27 @@ def _jax_vjp(enc, pred, w, b, labels, cot, clamp):
             np.asarray(db)]
 
 
+@pytest.mark.parametrize("shape", [
+    (3, 9, 5, 32, 16),
+    (1, 3, 5, 2048, 64),  # scaled_tp's joint width (hidden_features 2048)
+    (2, 5, 4, 20, 37),    # H and V not multiples of 8
+])
 @pytest.mark.parametrize("clamp", [-1.0, 0.05])
-def test_k2_plain_matches_jax_vjp(clamp):
+def test_k2_plain_matches_jax_vjp(clamp, shape):
     """fused_joint_bwd_plain and the autograd Function against the VJP of
-    the TPU fused joint (interpret mode), with and without the clamp."""
-    enc, pred, w, b, labels, cot = _joint(seed=1)
+    the TPU fused joint (interpret mode), with and without the clamp; blank
+    is the last class."""
+    B, T, U1, H, V = shape
+    enc, pred, w, b, labels, cot = _joint(B, T, U1, H, V, seed=1)
     want = _jax_vjp(enc, pred, w, b, labels, cot, clamp)
     t = [torch.tensor(x, requires_grad=True) for x in (enc, pred, w, b)]
-    outs = ttp.fused_joint_outputs(*t, torch.from_numpy(labels), 15, clamp)
+    outs = ttp.fused_joint_outputs(*t, torch.from_numpy(labels), V - 1, clamp)
     torch.autograd.backward(outs, [torch.from_numpy(c) for c in cot])
     for x, y in zip(t, want):
         np.testing.assert_allclose(x.grad.numpy(), y, **TOL)
     lse = outs[0].detach()
     direct = ttp.fused_joint_bwd_plain(
-        *[x.detach() for x in t], torch.from_numpy(labels), 15, lse,
+        *[x.detach() for x in t], torch.from_numpy(labels), V - 1, lse,
         torch.from_numpy(cot[1]), torch.from_numpy(cot[2]),
         torch.from_numpy(cot[0]), clamp)
     for x, y in zip(direct, want):
