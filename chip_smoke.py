@@ -19,7 +19,10 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    also at scaled_tp's joint width (2, 32, 17, 2048, 1024), its device
    time split by kernel (its h, dl, dh and dW passes, torch.profiler), its
    TFLOP/s, and a GEMM yardstick (``gemm_ms``: its three bare products as
-   ``torch.matmul``, which the port never calls);
+   ``torch.matmul``, which the port never calls); K3 and K4 also with
+   their device time (torch.profiler) and a critical-path bound: their
+   number of anti-diagonals x the latency of one dependent LSE step of
+   the kernels' own LSE, timed on a one-warp chain (``rnnt_lse_chain``);
 3a. chain phase (slice 4): K6 and K7 on every shard of the eval lattice
    (4, 504, 65) cut into 2 shards and the long lattice (4, 1000, 257) cut
    into 4, each shard at its global row offset with the previous (K6) or
@@ -76,9 +79,14 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
 the path phase) and of three banded train steps without and with device
-augmentation (after the gradient check): device time by kernel, the card's
-busy and idle share, and ``DIR/eval_trace.json.gz``,
+augmentation (after the gradient check): device time by kernel and by
+group (K1-K7, cuDNN's convolutions, the rest) per batch or step, the
+card's busy and idle share, and ``DIR/eval_trace.json.gz``,
 ``DIR/train_trace.json.gz`` and ``DIR/train_aug_trace.json.gz``.
+``--parent-lattice DIR`` builds another tree's K3 and K4 sources from DIR
+(``alpha_fwd.cu``, ``beta_bwd.cu`` and their headers) with the same flags
+and times them in turns with this tree's (other, this, this, other) at
+the eval and long shapes, after checking both against the plain versions.
 
 Every check raises on failure, so a failed phase exits nonzero before the
 last line.  float32 matmuls and cuDNN convs run without TF32 here (both
@@ -89,11 +97,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gzip
 import io
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -247,6 +257,31 @@ def k3_bound(B, T, U1) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def lse_step_ms(device, n: int = 4096, reps: int = 5) -> float:
+    """Milliseconds of one dependent step x = lse(x + a, b) of the lattice
+    kernels' own LSE (``rnnt_lse_chain`` in alpha_fwd.cu: one warp, n
+    steps): (time of 2n steps - time of n steps) / n, CUDA events, so the
+    launch cancels.  The critical-path bound of K3 and K4 is this x their
+    number of diagonals.  On the CPU (a rehearsal) it is 0."""
+    if torch.device(device).type != "cuda":
+        return 0.0
+    from rnnt_tpu_torch.ops.lattice_pallas import K3
+
+    fn = K3.entry("rnnt_lse_chain", [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p])
+    out = torch.empty(32, device=device)
+
+    def chain(steps):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if fn(-0.5, -1.0, steps, ctypes.c_void_p(out.data_ptr()), stream) != 0:
+            raise RuntimeError("rnnt_lse_chain: CUDA error at launch")
+
+    ms = (cuda_ms(lambda: chain(2 * n), reps) - cuda_ms(lambda: chain(n), reps)) / n
+    if not (bool(torch.isfinite(out).all()) and ms > 0):
+        raise AssertionError(f"lse chain: {ms} ms a step, finite {torch.isfinite(out).all()}")
+    return ms
+
+
 def check_k3(nll, alpha, nll_p, alpha_p, t_lens, u_lens) -> float:
     from rnnt_tpu_torch.ops.transducer import NEG
 
@@ -289,6 +324,8 @@ def kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE, long_case=K3_LON
         else:
             out["K1"]["banded_case"] = m
 
+    lse_ms = lse_step_ms(device)
+    log(f"one dependent LSE step (x = lse(x + a, b), lattice::lse): {lse_ms * 1e6:.2f} ns")
     for tag, dims in (("eval", dict(B=shape["B"], T=shape["T"], U1=shape["U1"])),
                       ("long", long_case)):
         k3 = k3_inputs(**dims, device=device)
@@ -296,12 +333,17 @@ def kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE, long_case=K3_LON
         nll_p, alpha_p = alpha_plain(*k3)
         err = check_k3(nll, alpha, nll_p, alpha_p, k3[2], k3[3])
         ms = cuda_ms(lambda: alpha_forward(*k3), reps)
+        dev_ms = device_ms(lambda: alpha_forward(*k3), reps)
         plain_ms = cuda_ms(lambda: alpha_plain(*k3), 1, warmup=0)  # host-bound: one call
         bound_ms, bound_by = k3_bound(**dims)
-        log(f"K3 {tag} ok {dims}: max abs err {err:.3e}, {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms)")
-        m = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, shape="B={B} T={T} U1={U1}".format(**dims))
+        path_ms = (dims["T"] + dims["U1"] - 1) * lse_ms
+        log(f"K3 {tag} ok {dims}: max abs err {err:.3e}, {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms; plain {plain_ms:.4f} ms, bytes bound {bound_ms:.6f} ms, "
+            f"critical-path bound {path_ms:.4f} ms = {dims['T'] + dims['U1'] - 1} "
+            f"diagonals x {lse_ms * 1e6:.1f} ns)")
+        m = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, critical_path_ms=path_ms,
+                 lse_step_ns=lse_ms * 1e6, shape="B={B} T={T} U1={U1}".format(**dims))
         if tag == "eval":
             out["K3"] = m
         else:
@@ -455,6 +497,7 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
 
     out = {"K2": k2_phase(device, (("eval", shape), ("banded", banded), ("wide", K2_WIDE)),
                           reps)}
+    lse_ms = lse_step_ms(device)
     for tag, dims in (("eval", dict(B=shape["B"], T=shape["T"], U1=shape["U1"])),
                       ("long", long_case)):
         k4 = k3_inputs(**dims, device=device)
@@ -466,12 +509,17 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
         err = max(check_close(f"K4 {n}", x, y, **K4_TOL)
                   for n, x, y in zip(("glpb", "glpl"), got, want))
         bound_ms, bound_by = k4_bound(k4[0], k4[2])
+        diagonals = int(k4[2].max()) + dims["U1"] - 1  # the longest sample's
         m = dict(max_abs_err=err, ms=cuda_ms(lambda: beta_backward(*args), reps),
+                 device_ms=device_ms(lambda: beta_backward(*args), reps),
                  plain_ms=cuda_ms(lambda: beta_plain(*args), 1, warmup=0),  # one call
                  bound_ms=bound_ms, bound_by=bound_by,
+                 critical_path_ms=diagonals * lse_ms, lse_step_ns=lse_ms * 1e6,
                  shape="B={B} T={T} U1={U1}".format(**dims))
-        log(f"K4 {tag} ok {dims}: max abs err {err:.3e}, {m['ms']:.4f} ms "
-            f"(plain {m['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms)")
+        log(f"K4 {tag} ok {dims}: max abs err {err:.3e}, {m['ms']:.4f} ms (device "
+            f"{m['device_ms']:.4f} ms; plain {m['plain_ms']:.4f} ms, bytes bound "
+            f"{bound_ms:.6f} ms, critical-path bound {m['critical_path_ms']:.4f} ms = "
+            f"{diagonals} diagonals x {lse_ms * 1e6:.1f} ns)")
         if tag == "eval":
             out["K4"] = m
         else:
@@ -605,6 +653,81 @@ def chain_kernel_phase(device, cases=CHAIN_CASES, reps=20) -> dict:
             f"ms against K3 {chain['k3_ms']:.4f} + K4 {chain['k4_ms']:.4f} ms")
         out[tag] = dict(err6=err6, err7=err7, shards=per_shard, chain=chain, n=n,
                         shape=f"B={B} T={rows} U1={U1} (T={T} in {n} shards)")
+    return out
+
+
+def burst_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of (CUDA events around n back-to-back calls) / n:
+    the host's launch cost hides behind the queue, so this is device time."""
+    return cuda_ms(lambda: [fn() for _ in range(n)], reps) / n
+
+
+def parent_lattice_phase(device, parent: Path) -> dict:
+    """K3 and K4 of another tree (``parent/alpha_fwd.cu`` and
+    ``parent/beta_bwd.cu`` with that tree's headers beside them) built with
+    the same flags, checked against this tree's plain versions (K3_TOL,
+    K4_TOL) and timed in turns with this tree's K3 and K4 (other, this,
+    this, other) at the eval and long shapes: the same C entry points on the
+    same buffers, ``burst_ms``.  Calls here are not counted."""
+    from rnnt_tpu_torch.ops.kernels import BUILD_DIR, NVCC_FLAGS, nvcc_path, ptr
+    from rnnt_tpu_torch.ops.lattice_pallas import K3, K4, alpha_plain, beta_plain
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, []
+    for k in (K3, K4):
+        out = BUILD_DIR / f"other_{parent.name}_{k.name}.so"
+        procs.append((k, out, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(parent / f"{k.name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for k, out, proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {parent / k.name}.cu:\n{proc.stdout.read()}")
+        fn = getattr(ctypes.CDLL(str(out)), k.symbol)
+        fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+        libs[k.name] = (fn, k.fn())
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def call(fn, *args):
+        if fn(*[ptr(a) if isinstance(a, torch.Tensor) else a for a in args], stream()) != 0:
+            raise RuntimeError("CUDA error at launch")
+
+    out = {}
+    for tag, dims in (("eval", dict(B=4, T=504, U1=65)), ("long", K3_LONG)):
+        lpb, lpl, t_lens, u_lens = k3_inputs(**dims, device=device)
+        B, T, U = lpb.shape
+        nll_p, alpha_p = alpha_plain(lpb, lpl, t_lens, u_lens)
+        g = torch.ones_like(nll_p)
+        want = beta_plain(lpb, lpl, alpha_p, t_lens, u_lens, nll_p, g)
+        nll, alpha = torch.empty_like(nll_p), torch.empty_like(lpb)
+        glpb, glpl = torch.empty_like(lpb), torch.empty_like(lpb)
+        m, errs = {}, {}
+        for who, i in (("other", 0), ("this", 1)):
+            k3, k4 = libs["alpha_fwd"][i], libs["beta_bwd"][i]
+            run3 = lambda k3=k3: call(k3, lpb, lpl, t_lens, u_lens, alpha, nll, B, T, U)
+            run4 = lambda k4=k4: call(k4, lpb, lpl, alpha_p, t_lens, u_lens, nll_p, g,
+                                      glpb, glpl, B, T, U)
+            run3()
+            run4()
+            sync(device)
+            errs[who] = (check_k3(nll, alpha, nll_p, alpha_p, t_lens, u_lens),
+                         max(check_close(f"{who} K4 {tag} {n}", x, y, **K4_TOL)
+                             for n, x, y in zip(("glpb", "glpl"), (glpb, glpl), want)))
+            m[who] = (run3, run4)
+        times = {f"{who}_{k}": [] for who in ("other", "this") for k in ("k3", "k4")}
+        for who in ("other", "this", "this", "other"):
+            run3, run4 = m[who]
+            times[f"{who}_k3"].append(burst_ms(run3))
+            times[f"{who}_k4"].append(burst_ms(run4))
+        out[tag] = dict(times, errs=errs)
+        log(f"K3/K4 {tag} {dims} against {parent}: both right (max abs err K3 / K4: "
+            f"other {errs['other'][0]:.3e} / {errs['other'][1]:.3e}, this "
+            f"{errs['this'][0]:.3e} / {errs['this'][1]:.3e}); ms (other, this, "
+            f"this, other): K3 {times['other_k3'][0]:.4f}, {times['this_k3'][0]:.4f}, "
+            f"{times['this_k3'][1]:.4f}, {times['other_k3'][1]:.4f}; K4 "
+            f"{times['other_k4'][0]:.4f}, {times['this_k4'][0]:.4f}, "
+            f"{times['this_k4'][1]:.4f}, {times['other_k4'][1]:.4f}; this tree "
+            f"{min(times['other_k3']) / max(times['this_k3']):.1f}x (K3) and "
+            f"{min(times['other_k4']) / max(times['this_k4']):.1f}x (K4) faster")
     return out
 
 
@@ -1543,11 +1666,21 @@ def grad_phase(device, kernels, train: dict) -> dict:
     return out
 
 
+# Device kernels grouped by what they belong to, first match wins: the
+# hand-written kernels by function name, cuDNN's convolutions by theirs.
+TRACE_GROUPS = (("K1", r"joint_fwd_kernel"), ("K2", r"sm90::gemm_kernel<|::h_kernel\("),
+                ("K3", r"alpha_fwd_kernel"), ("K4", r"beta_bwd_kernel"),
+                ("K5", r"window_gather_kernel"), ("K6/K7", r"_chain_kernel"),
+                ("convolutions", r"(?i)conv|cudnn|fprop|dgrad|wgrad"))
+
+
 def report_trace(prof, wall_s: float, what: str, out: Path, top: int = 15,
-                 kind=torch.autograd.DeviceType.CUDA) -> float:
-    """Print the device time by kernel (events of ``kind``) and the device's
-    busy and idle share of ``wall_s``; write the gzipped Chrome trace to
-    ``out``.gz.  Returns the idle share in percent."""
+                 kind=torch.autograd.DeviceType.CUDA, per: int = 1,
+                 per_what: str = "trace") -> float:
+    """Print the device time by kernel (events of ``kind``), by group
+    (TRACE_GROUPS) divided by ``per`` (the steps or batches traced), and the
+    device's busy and idle share of ``wall_s``; write the gzipped Chrome
+    trace to ``out``.gz.  Returns the idle share in percent."""
     kernels = [e for e in prof.events() if e.device_type == kind]
     if not kernels:
         raise AssertionError("the profiler saw no device activity")
@@ -1571,6 +1704,15 @@ def report_trace(prof, wall_s: float, what: str, out: Path, top: int = 15,
         f"idle {idle:.1f} %")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
+    groups: dict[str, list] = {}
+    for name, (us, n) in by_name.items():
+        g = next((k for k, pat in TRACE_GROUPS if re.search(pat, name)), "other")
+        acc = groups.setdefault(g, [0.0, 0])
+        acc[0] += us
+        acc[1] += n
+    log(f"  by group, per {per_what} (device ms, launches): " + ", ".join(
+        f"{g} {us / 1e3 / per:.3f} ms {n / per:.0f}x"
+        for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     out.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out))
     with open(out, "rb") as src, gzip.open(f"{out}.gz", "wb") as dst:
@@ -1603,7 +1745,7 @@ def profile_phase(cfg, model, device, out_dir: Path) -> None:
     report_trace(prof, res["seconds"],
                  f"eval, {len(batches)} batches (exact loss {res['loss_seconds']:.3f} s, "
                  f"forward + greedy decode {res['decode_seconds']:.3f} s)",
-                 out_dir / "eval_trace.json")
+                 out_dir / "eval_trace.json", per=len(batches), per_what="batch")
 
 
 def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
@@ -1645,7 +1787,7 @@ def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
     report_trace(prof, wall, f"{steps} train steps (pruned, banded, {what}; {audio:.1f} s "
                  f"of audio, {audio / wall:.2f} audio-s/s traced)",
                  out_dir / ("train_aug_trace.json" if device_augment else "train_trace.json"),
-                 kind=kind)
+                 kind=kind, per=steps, per_what="step")
 
 
 def multi_card_main(cards: int, smi: str) -> None:
@@ -1686,6 +1828,10 @@ def main() -> None:
                          "of this machine, one rank per card over NCCL (K1-K7 on each "
                          "other card, the T-sharded and data-parallel steps against 1 "
                          "rank, NCCL's transport costs)")
+    ap.add_argument("--parent-lattice", metavar="DIR", type=Path, default=None,
+                    help="also build alpha_fwd.cu and beta_bwd.cu of another tree "
+                         "from DIR (with its headers) and time them in turns with "
+                         "this tree's K3 and K4")
     ap.add_argument("--profile", metavar="DIR", type=Path, default=None,
                     help="also trace two eval batches and three train steps with "
                          "torch.profiler, print device time by kernel and the idle "
@@ -1733,6 +1879,12 @@ def main() -> None:
     measured = kernel_phase(device)
     measured.update(train_kernel_phase(device))
     chain = chain_kernel_phase(device)
+    if args.parent_lattice is not None:
+        other = parent_lattice_phase(device, args.parent_lattice.resolve())
+        measured["K3"]["other_tree"] = {t: {"k3_ms": c["other_k3"], "this_k3_ms": c["this_k3"]}
+                                        for t, c in other.items()}
+        measured["K4"]["other_tree"] = {t: {"k4_ms": c["other_k4"], "this_k4_ms": c["this_k4"]}
+                                        for t, c in other.items()}
     measured["K5"] = k5_phase(device, L)
     augment = augment_phase(device, K5, L)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1752,7 +1904,9 @@ def main() -> None:
     for key, k in (("K1", K1), ("K2", K2), ("K3", K3), ("K4", K4), ("K5", K5)):
         m = measured[key]
         extra = {c: m[c] for c in ("long_case", "banded_case", "wide_case", "cases",
-                                   "passes_ms", "gemm_ms", "tflops") if c in m}
+                                   "passes_ms", "gemm_ms", "tflops", "device_ms",
+                                   "critical_path_ms", "lse_step_ns", "other_tree")
+                 if c in m}
         if k.name in path["launches"]:
             extra["eval_launches"] = path["launches"][k.name]
         entries.append(dict(

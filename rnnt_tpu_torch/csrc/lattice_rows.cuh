@@ -1,6 +1,7 @@
-// Row-scan device code shared by the lattice kernels: K3 (alpha_fwd.cu),
-// K4 (beta_bwd.cu) and their T-sharded chain variants K6 (alpha_chain.cu)
-// and K7 (beta_chain.cu).
+// Row-scan device code of the T-sharded chain kernels K6 (alpha_chain.cu,
+// replaces rnnt_tpu/ops/lattice_pallas.py:204 _alpha_chain_kernel) and K7
+// (beta_chain.cu, replaces :272 _beta_chain_kernel), and the LSE that the
+// wavefront of K3 and K4 (lattice_wave.cuh) shares with them.
 //
 // One warp holds one sample's lattice row; lane l owns the KPL consecutive
 // columns u0 = l * KPL .. u0 + KPL - 1.  A row of either recursion is
@@ -8,10 +9,13 @@
 // (LSE, +) semiring, (2) a 5-round shuffle scan of those composites across
 // the warp, (3) each lane replaying its columns from the value entering from
 // its neighbour, handing each column's result to the caller's ``emit``.
+// What bounds it on an H100 is latency: ~13 dependent LSEs a row (KPL = 4
+// at U = 65), ~1.6 us a row.  K3 and K4 left it for the wavefront, one LSE
+// a diagonal; moving K6 and K7 there too is queued.
 //
 // Log-zero is the finite NEG = -1e30 and the LSE is unguarded, as in the
 // Pallas kernels: when both sides are log-zero the result stays ~NEG, and
-// sums of up to U NEGs stay far inside float range.
+// sums of up to T + U NEGs stay far inside float range.
 
 #pragma once
 

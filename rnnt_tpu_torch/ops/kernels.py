@@ -79,13 +79,17 @@ class CudaKernel:
     def fn(self):
         """The ctypes function, building the library first if needed."""
         if self._fn is None:
-            build_all([self])
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self.entry(self.symbol, self.argtypes)
         return self._fn
+
+    def entry(self, symbol: str, argtypes: list):
+        """The C entry point ``symbol`` of this kernel's library (built first
+        if needed), returning int.  Calls through it are not counted."""
+        build_all([self])
+        fn = getattr(ctypes.CDLL(str(self.library_path())), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
     def launch(self, *args) -> None:
         """Call the C entry point with ``args`` (tensors become their data

@@ -11,14 +11,16 @@ kernels are CUDA C++ in ``csrc/alpha_fwd.cu`` and ``csrc/beta_bwd.cu``,
 built for sm_90a by ``ops/kernels.py``.  K6 replaces ``:204``
 ``_alpha_chain_kernel`` (``_alpha_chain_pallas:247``, call ``:256``) and K7
 ``:272`` ``_beta_chain_kernel`` (``_beta_chain_pallas:321``, call ``:335``);
-they are ``csrc/alpha_chain.cu`` and ``csrc/beta_chain.cu``, which share
-their row scans with K3 and K4 through ``csrc/lattice_rows.cuh``.
+they are ``csrc/alpha_chain.cu`` and ``csrc/beta_chain.cu``.
 
 Bound on an H100: latency.  At the eval shape (B 4, T' 504, U+1 65) K3
-moves ~1.6 MB and K4 ~2.6 MB — about 0.5 and 0.8 us at 3.35 TB/s — but
-each runs 504 dependent rows, each a log-semiring scan over U.  Both use
-one warp per sample, shuffle scans and the next row prefetched into
-registers; see the sources.
+moves ~1.6 MB and K4 ~2.6 MB — about 0.5 and 0.8 us at 3.35 TB/s — but the
+recursion's critical path is T + U - 1 = 568 dependent log-sum-exps.  K3
+and K4 are anti-diagonal wavefronts (``csrc/lattice_wave.cuh``): a block a
+sample, a thread a column, one LSE and one barrier a diagonal, the inputs
+staged through a shared-memory ring by 8-column strips and the outputs
+written back the same way.  K6 and K7 keep the row scans of
+``csrc/lattice_rows.cuh`` (one warp a sample, ~13 dependent LSEs a row).
 
 ``alpha_plain``, ``beta_plain``, ``alpha_chain_plain`` and
 ``beta_chain_plain`` are the same functions in plain PyTorch (the CPU path

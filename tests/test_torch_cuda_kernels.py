@@ -72,18 +72,52 @@ def test_k1_matches_plain(cuda, shape):
         _close(x, y, atol=2e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("shape", [(3, 40, 17), (2, 150, 31), (2, 64, 300),
-                                   (4, 504, 65)])
-def test_k3_matches_plain(cuda, shape):
+# The lattices K3 and K4 are held to: (shape, t_lens or None for random,
+# banded).  Besides the first four, the wavefront's edges: U1 = 1 (u_len 0),
+# T = 1, one column past a warp, U1 = 257, U_MAX = 1024, U1 > T, t_lens
+# mixing 1, T and values between, and a lattice from banded_to_full (mostly
+# NEG, as in the flagship's pruned step).
+LATTICE_CASES = [
+    ((3, 40, 17), None, False), ((2, 150, 31), None, False),
+    ((2, 64, 300), None, False), ((4, 504, 65), None, False),
+    ((3, 9, 1), None, False), ((2, 1, 9), [1, 1], False),
+    ((2, 40, 33), None, False), ((2, 60, 257), None, False),
+    ((1, 30, 1024), None, False), ((2, 20, 300), None, False),
+    ((4, 50, 40), [1, 50, 17, 33], False), ((4, 120, 65), [120, 97, 64, 30], True),
+]
+LATTICE_IDS = ["x".join(map(str, c[0])) + ("-lens" if c[1] else "") + ("-banded" if c[2] else "")
+               for c in LATTICE_CASES]
+
+
+def _lattice_inputs(shape, t_lens, banded, u_lo, g):
+    """(lp_blank, lp_label, t_lens, u_lens) on the CPU from generator g:
+    u_lens in [u_lo, U1), lp_label NEG at u >= u_len.  ``banded`` builds
+    both log-probs with banded_to_full from a 16-wide band whose start
+    climbs from 0 to u_len - 15 over the sample's t_len rows."""
+    from rnnt_tpu_torch.ops.transducer_pruned import banded_to_full
+
     B, T, U1 = shape
-    g = torch.Generator().manual_seed(sum(shape))
     lpb = torch.randn(B, T, U1, generator=g) - 1.5
     lpl = torch.randn(B, T, U1, generator=g) - 1.5
-    u_lens = torch.randint(1, U1, (B,), generator=g, dtype=torch.int32)
-    t_lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    u_lens = torch.randint(min(u_lo, U1 - 1), U1, (B,), generator=g, dtype=torch.int32)
+    t_rand = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    t_lens = t_rand if t_lens is None else torch.tensor(t_lens, dtype=torch.int32)
+    if banded:
+        S = 16
+        t = torch.arange(T)[None, :]
+        top = (u_lens.long() - S + 1).clamp(min=0)[:, None]
+        bounds = (t * top // (t_lens.long()[:, None] - 1).clamp(min=1)).clamp(max=top)
+        lpb = banded_to_full(lpb[:, :, :S].contiguous(), bounds, U1)
+        lpl = banded_to_full(lpl[:, :, :S].contiguous(), bounds, U1)
     lpl = torch.where(torch.arange(U1)[None, None, :] < u_lens[:, None, None],
                       lpl, torch.full_like(lpl, NEG))
-    args = [x.to(cuda) for x in (lpb, lpl, t_lens, u_lens)]
+    return lpb, lpl, t_lens, u_lens
+
+
+@pytest.mark.parametrize("shape,t_lens,banded", LATTICE_CASES, ids=LATTICE_IDS)
+def test_k3_matches_plain(cuda, shape, t_lens, banded):
+    g = torch.Generator().manual_seed(sum(shape))
+    args = [x.to(cuda) for x in _lattice_inputs(shape, t_lens, banded, 1, g)]
     before = K3.launches
     nll, alpha = alpha_forward(*args)
     torch.cuda.synchronize()
@@ -138,19 +172,12 @@ def test_k2_matches_plain(cuda, shape, clamp):
         assert _rel_l2(x, y) < 5e-3, (name, _rel_l2(x, y))
 
 
-@pytest.mark.parametrize("shape", [(3, 40, 17), (2, 150, 31), (2, 64, 300),
-                                   (4, 504, 65)])
-def test_k4_matches_plain(cuda, shape):
-    B, T, U1 = shape
+@pytest.mark.parametrize("shape,t_lens,banded", LATTICE_CASES, ids=LATTICE_IDS)
+def test_k4_matches_plain(cuda, shape, t_lens, banded):
+    B = shape[0]
     g = torch.Generator().manual_seed(sum(shape))
-    lpb = torch.randn(B, T, U1, generator=g) - 1.5
-    lpl = torch.randn(B, T, U1, generator=g) - 1.5
-    u_lens = torch.randint(0, U1, (B,), generator=g, dtype=torch.int32)
-    t_lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
-    lpl = torch.where(torch.arange(U1)[None, None, :] < u_lens[:, None, None],
-                      lpl, torch.full_like(lpl, NEG))
+    args = [x.to(cuda) for x in _lattice_inputs(shape, t_lens, banded, 0, g)]
     cot = torch.randn(B, generator=g)
-    args = [x.to(cuda) for x in (lpb, lpl, t_lens, u_lens)]
     nll, alpha = alpha_plain(*args)
     before = K4.launches
     got = beta_backward(*args[:2], alpha, *args[2:], nll, cot.to(cuda))
