@@ -8,18 +8,22 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
 2. build the hand-written kernels from ``rnnt_tpu_torch/csrc`` with nvcc,
    one process per source, all started together;
 3. kernel phase: each kernel against its plain PyTorch version on the card
-   at the main paths' shapes — K1 and K2 at the eval shape and at the
+   at the main paths' shapes — K1 and K2 at the eval shape, at the
    banded patches of the pruned loss (K2 with and without the gradient
-   clamp), K3 and K4 at the eval shape and at a long-label shape, K5 at the
+   clamp) and at scaled_tp's joint width (2, 32, 17, 2048, 1024), K1 also
+   at two shapes whose H or V is not a multiple of 8, K3 and K4 at the
+   eval shape and at a long-label shape, K5 at the
    four calls one flagship ``device_augment_full`` makes (recorded from a
    call on a full-width batch: chorus, resample, trim, time-stretch frames)
    and at edge cases — with the tolerances stated below, timed with CUDA
    events (median after warm-up) beside the least time the card could take
-   and, for K5, one ``torch.gather`` call computing the same function; K2
-   also at scaled_tp's joint width (2, 32, 17, 2048, 1024), its device
-   time split by kernel (its h, dl, dh and dW passes, torch.profiler), its
-   TFLOP/s, and a GEMM yardstick (``gemm_ms``: its three bare products as
-   ``torch.matmul``, which the port never calls); K3 and K4 also with
+   and, for K5, one ``torch.gather`` call computing the same function; K1
+   and K2 with their device time split by kernel (K1's h and lse passes,
+   K2's h, dl, dh and dW passes; torch.profiler), their TFLOP/s, and a
+   GEMM yardstick (``gemm_ms``: their bare products as ``torch.matmul``,
+   which the port never calls); K2 fed K1's lse with one row's g_lse set,
+   whose db (that row's softmax) must sum to 1 within 1e-5, at 8 rows; K3
+   and K4 also with
    their device time (torch.profiler) and a critical-path bound: their
    number of anti-diagonals x the latency of one dependent LSE step of
    the kernels' own LSE, timed on a one-warp chain (``rnnt_lse_chain``);
@@ -87,6 +91,9 @@ card's busy and idle share, and ``DIR/eval_trace.json.gz``,
 (``alpha_fwd.cu``, ``beta_bwd.cu`` and their headers) with the same flags
 and times them in turns with this tree's (other, this, this, other) at
 the eval and long shapes, after checking both against the plain versions.
+``--parent-joint DIR`` (repeatable) does the same for another tree's K1
+(``joint_fwd.cu`` and its headers, called through that tree's own C
+signature) at the eval and banded shapes.
 
 Every check raises on failure, so a failed phase exits nonzero before the
 last line.  float32 matmuls and cuDNN convs run without TF32 here (both
@@ -298,31 +305,95 @@ def check_k3(nll, alpha, nll_p, alpha_p, t_lens, u_lens) -> float:
     return err
 
 
+# K1 at scaled_tp's joint width (`hidden_features: 2048`), and shapes whose H
+# or V is not a multiple of 8 (enc, pred and W zero-padded by the wrapper).
+K1_WIDE = dict(B=2, T=32, U1=17, H=2048, V=1024)
+K1_ODD = (dict(B=2, T=9, U1=5, H=36, V=37), dict(B=1, T=5, U1=130, H=100, V=1000))
+# K2's softmax from K1's lse: each probed row's probabilities sum to 1
+# within this (both kernels round h by one device function).
+K1_K2_SUM_ATOL = 1e-5
+
+
+def k1_gemm_ms(B, T, U1, H, V, device, reps: int) -> float:
+    """The GEMM yardstick: K1's product h.W as one bare torch.matmul on
+    bf16 (B*T*U1, H) x (H, V).  Timed beside K1, never called by the port."""
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn(B * T * U1, H, generator=g).to(torch.bfloat16).to(device)
+    w = torch.randn(H, V, generator=g).to(torch.bfloat16).to(device)
+    return cuda_ms(lambda: torch.matmul(h, w), reps)
+
+
+def k1_k2_softmax_sums(device, dims=EVAL_SHAPE, probes: int = 8) -> float:
+    """K2 fed K1's lse with g_lse one-hot at one row and the other
+    cotangents zero: its db is that row's softmax.  For ``probes`` rows
+    spread over the row tiles, |db.sum() - 1| <= K1_K2_SUM_ATOL; returns
+    the largest gap."""
+    from rnnt_tpu_torch.ops.transducer_pallas import fused_joint_backward, fused_joint_forward
+
+    args = k1_inputs(**dims, device=device)
+    lse = fused_joint_forward(*args)[0]
+    n = lse.numel()
+    zeros = torch.zeros_like(lse)
+    gap = 0.0
+    for i in range(probes):
+        row = min(n - 1, i * (n // probes) + 77 * i)
+        g_lse = torch.zeros_like(lse)
+        g_lse.view(-1)[row] = 1.0
+        db = fused_joint_backward(*args, lse, zeros, zeros, g_lse)[3]
+        gap = max(gap, abs(float(db.double().sum()) - 1.0))
+    if not gap <= K1_K2_SUM_ATOL:
+        raise AssertionError(f"K1/K2: a row's softmax from K1's lse sums to 1 +- {gap:.3e} "
+                             f"> {K1_K2_SUM_ATOL}")
+    log(f"K1/K2 ok {dims}: K2's softmax against K1's lse sums to 1 within {gap:.3e} "
+        f"over {probes} rows")
+    return gap
+
+
 def kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE, long_case=K3_LONG,
-                 reps=20) -> dict:
+                 wide=K1_WIDE, odd=K1_ODD, reps=20) -> dict:
     from rnnt_tpu_torch.ops.lattice_pallas import alpha_forward, alpha_plain
     from rnnt_tpu_torch.ops.transducer_pallas import (
         fused_joint_outputs, fused_joint_outputs_plain)
 
     out = {}
-    for tag, dims in (("eval", shape), ("banded", banded)):
+    for dims in odd:
+        args = k1_inputs(**dims, device=device)
+        err = max(check_close(f"K1 odd {dims} {n}", g, w, **K1_TOL)
+                  for n, g, w in zip(("lse", "blank", "label"), fused_joint_outputs(*args),
+                                     fused_joint_outputs_plain(*args)))
+        log(f"K1 odd ok {dims}: max abs err {err:.3e}")
+    for tag, dims in (("eval", shape), ("banded", banded), ("wide", wide)):
         args = k1_inputs(**dims, device=device)
         got = fused_joint_outputs(*args)
         want = fused_joint_outputs_plain(*args)
         err = max(check_close(f"K1 {tag} {n}", g, w, **K1_TOL)
                   for n, g, w in zip(("lse", "blank", "label"), got, want))
+        del got, want
+        call = lambda: fused_joint_outputs(*args)  # noqa: E731
         m = dict(
-            max_abs_err=err, ms=cuda_ms(lambda: fused_joint_outputs(*args), reps),
+            max_abs_err=err, ms=cuda_ms(call, reps),
             plain_ms=cuda_ms(lambda: fused_joint_outputs_plain(*args), 3, warmup=1),
             bound_ms=k1_bound_ms(**dims), bound_by="operations",
             shape="B={B} T={T} U1={U1} H={H} V={V}".format(**dims))
-        del args, got, want
-        log(f"K1 {tag} ok {dims}: max abs err {err:.3e}, {m['ms']:.4f} ms "
-            f"(plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms)")
+        if torch.device(device).type == "cuda":
+            m["passes_ms"] = device_ms_by_kernel(call, reps)
+            m["device_ms"] = sum(m["passes_ms"].values())
+        m["gemm_ms"] = k1_gemm_ms(**dims, device=device, reps=reps)
+        m["gemm_note"] = ("gemm_ms: h.W as one bare torch.matmul on bf16 (N, H) x (H, V), "
+                          "a yardstick the port never calls")
+        flops = 2.0 * dims["B"] * dims["T"] * dims["U1"] * dims["H"] * dims["V"]
+        m["tflops"] = flops / (m.get("device_ms", m["ms"]) * 1e-3) / 1e12
+        del args
+        passes = ", ".join(f"{k} {v:.4f}" for k, v in m.get("passes_ms", {}).items())
+        log(f"K1 {tag} ok {dims}: max abs err {err:.3e}, {m['ms']:.4f} ms (device "
+            f"{m.get('device_ms', float('nan')):.4f} ms = {m['tflops']:.1f} TFLOP/s; plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms, gemm yardstick "
+            f"{m['gemm_ms']:.4f} ms); device ms by kernel: {passes}")
         if tag == "eval":
             out["K1"] = m
         else:
-            out["K1"]["banded_case"] = m
+            out["K1"][f"{tag}_case"] = m
+    out["K1"]["k1_k2_softmax_gap"] = k1_k2_softmax_sums(device, shape)
 
     lse_ms = lse_step_ms(device)
     log(f"one dependent LSE step (x = lse(x + a, b), lattice::lse): {lse_ms * 1e6:.2f} ns")
@@ -475,6 +546,8 @@ def k2_phase(device, cases=(("eval", EVAL_SHAPE), ("banded", BANDED_SHAPE),
         if torch.device(device).type == "cuda":
             m["passes_ms"] = device_ms_by_kernel(call)
         m["gemm_ms"] = k2_gemm_ms(**dims, device=device, reps=reps)
+        m["gemm_note"] = ("gemm_ms: its three bare products as torch.matmul, a yardstick "
+                          "the port never calls")
         flops = 6.0 * dims["B"] * dims["T"] * dims["U1"] * dims["H"] * dims["V"]
         m["tflops"] = flops / (m["ms"] * 1e-3) / 1e12
         passes = ", ".join(f"{k} {v:.4f}" for k, v in m.get("passes_ms", {}).items())
@@ -728,6 +801,111 @@ def parent_lattice_phase(device, parent: Path) -> dict:
             f"{times['this_k4'][1]:.4f}, {times['other_k4'][1]:.4f}; this tree "
             f"{min(times['other_k3']) / max(times['this_k3']):.1f}x (K3) and "
             f"{min(times['other_k4']) / max(times['this_k4']):.1f}x (K4) faster")
+    return out
+
+
+def joint_fwd_arity(source: Path) -> int:
+    """The number of parameters of ``rnnt_joint_fwd`` in a joint_fwd.cu:
+    15 for the earlier single-kernel design (enc, pred, w, bias, labels,
+    lse, blank, label, B, T, U1, H, V, blank, stream), 17 for the h pass +
+    wgmma design (h workspace, Hp and Vp added)."""
+    text = source.read_text()
+    m = re.search(r'extern "C" int rnnt_joint_fwd\(([^)]*)\)', text)
+    if m is None:
+        raise RuntimeError(f"{source}: no rnnt_joint_fwd entry point")
+    return len(m.group(1).split(","))
+
+
+def build_joint_fwd_trees(dirs: list[Path]) -> list[tuple[str, int, object]]:
+    """[(name, arity, C entry point)]: this tree's K1 first, then K1 of each
+    other tree (``DIR/joint_fwd.cu`` with that tree's headers beside it),
+    built with the same flags, one nvcc each, all started together."""
+    from rnnt_tpu_torch.ops.kernels import BUILD_DIR, NVCC_FLAGS, nvcc_path
+    from rnnt_tpu_torch.ops.transducer_pallas import K1
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, d in enumerate(dirs):
+        out = BUILD_DIR / f"other_{i}_{d.name}_joint_fwd.so"
+        procs.append((d, out, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(d / "joint_fwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    fns = [("this", 17, K1.fn())]
+    for d, out, proc in procs:
+        build_log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {d}/joint_fwd.cu:\n{build_log}")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "wgmma" in line:
+                log(f"  {d}/joint_fwd.cu: {line.strip()}")
+        arity = joint_fwd_arity(d / "joint_fwd.cu")
+        if arity not in (15, 17):
+            raise RuntimeError(f"{d}/joint_fwd.cu: rnnt_joint_fwd takes {arity} arguments")
+        fn = getattr(ctypes.CDLL(str(out)), "rnnt_joint_fwd")
+        fn.argtypes = K1.argtypes if arity == 17 else (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns.append((str(d), arity, fn))
+    return fns
+
+
+def joint_fwd_call(fn, arity: int, inputs: list, h_ws, outs):
+    """A callable launching one tree's K1 entry point (``arity`` as
+    ``joint_fwd_arity``) on ``inputs`` (``k1_inputs``, H and V multiples of
+    8, so both designs take the same buffers), the workspace and the three
+    outputs, on the current stream; raises on a CUDA error."""
+    from rnnt_tpu_torch.ops.kernels import ptr
+
+    enc, pred, w, b, labels, blank = inputs
+    (B, T, H), U1, V = enc.shape, pred.shape[1], w.shape[1]
+    assert H % 8 == 0 and V % 8 == 0
+    if arity == 15:
+        args = (enc, pred, w, b, labels, *outs, B, T, U1, H, V, blank)
+    else:
+        args = (enc, pred, w, b, labels, h_ws, *outs, B, T, U1, H, V, V, blank)
+    c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
+
+    def run():
+        if fn(*c_args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) != 0:
+            raise RuntimeError("CUDA error at launch")
+    return run
+
+
+def parent_joint_phase(device, parents: list[Path]) -> dict:
+    """K1 of other trees (``build_joint_fwd_trees``), called through each
+    tree's own C signature, checked against this tree's plain version
+    (K1_TOL) and timed in turns with this tree's K1 (other, this, this,
+    other) at the eval and banded shapes: ``burst_ms`` of the C entry points
+    on the same buffers.  Calls here are not counted."""
+    from rnnt_tpu_torch.ops.transducer_pallas import fused_joint_outputs_plain
+
+    fns = build_joint_fwd_trees(parents)
+    out = {}
+    for tag, dims in (("eval", EVAL_SHAPE), ("banded", BANDED_SHAPE)):
+        inputs = k1_inputs(**dims, device=device)
+        want = fused_joint_outputs_plain(*inputs)
+        outs = [torch.empty_like(want[0]) for _ in range(3)]
+        h_ws = torch.empty((want[0].numel(), dims["H"]), dtype=torch.bfloat16, device=device)
+        runs, res = {}, {}
+        for who, arity, fn in fns:
+            runs[who] = joint_fwd_call(fn, arity, inputs, h_ws, outs)
+            runs[who]()
+            sync(device)
+            res[who] = dict(max_abs_err=max(
+                check_close(f"{who} K1 {tag} {n}", g, x, **K1_TOL)
+                for n, g, x in zip(("lse", "blank", "label"), outs, want)))
+        for who, _, _ in fns[1:]:
+            times = {"other": [], "this": []}
+            for turn in ("other", "this", "this", "other"):
+                times[turn].append(burst_ms(runs[who if turn == "other" else "this"]))
+            res[who].update(ms=times["other"], this_ms=times["this"])
+            log(f"K1 {tag} {dims} against {who}: both right (max abs err other "
+                f"{res[who]['max_abs_err']:.3e}, this {res['this']['max_abs_err']:.3e}); ms "
+                f"(other, this, this, other): {times['other'][0]:.4f}, "
+                f"{times['this'][0]:.4f}, {times['this'][1]:.4f}, {times['other'][1]:.4f}; "
+                f"this tree {min(times['other']) / max(times['this']):.2f}x faster")
+        out[tag] = res
+        del inputs, outs, h_ws, want
     return out
 
 
@@ -1668,7 +1846,8 @@ def grad_phase(device, kernels, train: dict) -> dict:
 
 # Device kernels grouped by what they belong to, first match wins: the
 # hand-written kernels by function name, cuDNN's convolutions by theirs.
-TRACE_GROUPS = (("K1", r"joint_fwd_kernel"), ("K2", r"sm90::gemm_kernel<|::h_kernel\("),
+TRACE_GROUPS = (("K1", r"gemm_kernel<[^>]*LsePass>|::fwd_h_kernel\("),
+                ("K2", r"gemm_kernel<[^>]*(DlPass|DhPass|DwPass)>|::h_kernel\("),
                 ("K3", r"alpha_fwd_kernel"), ("K4", r"beta_bwd_kernel"),
                 ("K5", r"window_gather_kernel"), ("K6/K7", r"_chain_kernel"),
                 ("convolutions", r"(?i)conv|cudnn|fprop|dgrad|wgrad"))
@@ -1832,6 +2011,9 @@ def main() -> None:
                     help="also build alpha_fwd.cu and beta_bwd.cu of another tree "
                          "from DIR (with its headers) and time them in turns with "
                          "this tree's K3 and K4")
+    ap.add_argument("--parent-joint", metavar="DIR", type=Path, action="append", default=[],
+                    help="also build joint_fwd.cu of another tree from DIR (with its "
+                         "headers; repeatable) and time it in turns with this tree's K1")
     ap.add_argument("--profile", metavar="DIR", type=Path, default=None,
                     help="also trace two eval batches and three train steps with "
                          "torch.profiler, print device time by kernel and the idle "
@@ -1869,7 +2051,7 @@ def main() -> None:
     log(f"built {[k.name for k in kernels + [K6, K7]]} in {secs:.1f} s")
     for k in kernels + [K6, K7]:
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {k.name}: {line.strip()}")
     if args.cards is not None:
         return multi_card_main(args.cards, smi)
@@ -1885,6 +2067,9 @@ def main() -> None:
                                         for t, c in other.items()}
         measured["K4"]["other_tree"] = {t: {"k4_ms": c["other_k4"], "this_k4_ms": c["this_k4"]}
                                         for t, c in other.items()}
+    if args.parent_joint:
+        other = parent_joint_phase(device, [d.resolve() for d in args.parent_joint])
+        measured["K1"]["other_tree"] = other
     measured["K5"] = k5_phase(device, L)
     augment = augment_phase(device, K5, L)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1905,7 +2090,8 @@ def main() -> None:
         m = measured[key]
         extra = {c: m[c] for c in ("long_case", "banded_case", "wide_case", "cases",
                                    "passes_ms", "gemm_ms", "tflops", "device_ms",
-                                   "critical_path_ms", "lse_step_ns", "other_tree")
+                                   "critical_path_ms", "lse_step_ns", "other_tree",
+                                   "k1_k2_softmax_gap")
                  if c in m}
         if k.name in path["launches"]:
             extra["eval_launches"] = path["launches"][k.name]
@@ -1923,8 +2109,7 @@ def main() -> None:
                           "torch.profiler summed over the 4 calls of one step"
                           if "library_ms" in m
                           else "no single PyTorch call computes this function"
-                          + ("; gemm_ms: its three bare products as torch.matmul, a "
-                             "yardstick the port never calls" if "gemm_ms" in m else "")),
+                          + (f"; {m['gemm_note']}" if "gemm_note" in m else "")),
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
     tsteps = ranks["tshard"]["steps2"]

@@ -31,7 +31,8 @@
 // fill and epilogue weigh as much as its mainloop: they run two blocks an
 // SM (3 stages each), one hiding the other's.  dW has long k loops and
 // runs one 128 x 256 block an SM (4 stages).
-//   h pass:  h = bf16(tanh(bf16(enc + pred))), 16 bytes a thread: tanh is
+//   h pass:  h = bf16(tanh(bf16(enc + pred))), 16 bytes a thread, by the
+//     device function K1 uses too (joint_h.cuh): tanh is
 //     evaluated once per lattice element (the old dW pass redid it for
 //     every tile of V), and no pass keeps an h tile in shared memory, so
 //     no width caps H.
@@ -57,6 +58,7 @@
 
 #include <algorithm>
 
+#include "joint_h.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -67,39 +69,13 @@ using sm90::BOX;
 using sm90::bf16;
 using sm90::ldp;
 
-// K1's rounding of tanh(enc + pred) on bf16 tensors: the sum rounded to
-// bf16, then tanh rounded to bf16.
-__device__ __forceinline__ bf16 joint_h(bf16 e, bf16 p) {
-  const float s = __bfloat162float(
-      __float2bfloat16(__bfloat162float(e) + __bfloat162float(p)));
-  return __float2bfloat16(tanhf(s));
-}
-
 // ------------------------------- h pass -------------------------------
 
-// One block per (b, t): enc's row is read once per block from L1, and
-// the only divisions are by the row's chunk count.
+// h = bf16(tanh(bf16(enc + pred))), rounded as K1 rounds it (joint_h.cuh).
 __global__ void __launch_bounds__(256)
 h_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
          bf16* __restrict__ h, int T, int U1, int Hp) {
-  const int bt = blockIdx.x;
-  const int chunks = Hp / 8;
-  const bf16* er = enc + (long long)bt * Hp;
-  const bf16* pr = pred + (long long)(bt / T) * U1 * Hp;
-  bf16* hr = h + (long long)bt * U1 * Hp;
-  for (int i = threadIdx.x; i < U1 * chunks; i += blockDim.x) {
-    const int u = i / chunks;
-    const int k = (i - u * chunks) * 8;
-    const uint4 ev = *reinterpret_cast<const uint4*>(er + k);
-    const uint4 pv = *reinterpret_cast<const uint4*>(pr + u * Hp + k);
-    const bf16* e8 = reinterpret_cast<const bf16*>(&ev);
-    const bf16* p8 = reinterpret_cast<const bf16*>(&pv);
-    uint4 out;
-    bf16* o8 = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o8[j] = joint_h(e8[j], p8[j]);
-    *reinterpret_cast<uint4*>(hr + u * Hp + k) = out;
-  }
+  joint::h_rows(enc, pred, h, T, U1, Hp);
 }
 
 // ------------------------------- dl pass -------------------------------

@@ -2,8 +2,9 @@
 // Hopper (sm_90a), shared by the kernels that multiply bf16 tiles.
 //
 // Users: K2, the fused joint backward (joint_bwd.cu), runs its three
-// products on it (dl = h.W, dh = dl.W^T, dW = h^T.dl).  K1's redesign
-// (joint_fwd.cu) is meant to be the next.
+// products on it (dl = h.W, dh = dl.W^T, dW = h^T.dl); K1, the fused joint
+// forward (joint_fwd.cu), runs h.W over every V tile of a row tile with a
+// logsumexp in registers (the walking hook below).
 //
 // One CTA (CTAS of them an SM) computes a BM x BN tile (BM = 128) of
 // C = A . B in float32 over k-blocks of BK = 64:
@@ -36,6 +37,17 @@
 // shared memory (which it may overwrite), with `consumer_sync()` and
 // P::SCRATCH floats of `scratch` past the tile.
 //
+// The walking hook: a problem that defines a type `State` has each block
+// walk `tile.n_tiles` tiles (`P::nth(tile, i)`, e.g. the N tiles of one
+// row tile), the loads of one tile after the other's through the same
+// ring, so that the next tile's loads overlap this tile's epilogue, and
+// hands each finished accumulator to `P::reg_epilogue(params, tile_i, acc,
+// state, tid)` in the registers of the wgmma fragment (m64nBNk16:
+// acc[4j + e] at row warp*16 + lane/4 and acc[4j + 2 + e] at row + 8 of
+// the warpgroup's 64, column j*8 + 2*(lane%4) + e).  `state` (a
+// `P::State`, one per consumer thread) lives across the walk.  No
+// shared-memory tile: the ring is never drained.
+//
 // Host side: `encode_map` builds a CUtensorMap with cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so that nothing links libcuda;
 // `launch_gemm` sizes the shared memory and launches.
@@ -46,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -70,6 +84,12 @@ __host__ __device__ constexpr int threads() {
 }
 
 __host__ __device__ constexpr int ldp(int bn) { return bn + 8; }
+
+// True for a problem with the walking hook (a `State` type).
+template <class P, class = void>
+struct walks_n : std::false_type {};
+template <class P>
+struct walks_n<P, std::void_t<typename P::State>> : std::true_type {};
 
 // ------------------------------ device side ------------------------------
 
@@ -278,12 +298,58 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
 }
 
 // Bytes of the ring or of the epilogue's tile and scratch, whichever is
-// larger (the epilogue reuses the drained ring); the barriers follow.
+// larger (the epilogue reuses the drained ring; a walking problem keeps
+// its tiles in registers); the barriers follow.
 template <class P>
 __host__ __device__ constexpr int body_bytes() {
   constexpr int ring = P::STAGES * (2 + P::BN / BOX) * BOX_BYTES;
-  constexpr int epi = (BM * ldp(P::BN) + P::SCRATCH) * 4;
+  constexpr int epi = walks_n<P>::value ? 0 : (BM * ldp(P::BN) + P::SCRATCH) * 4;
   return ring > epi ? ring : epi;
+}
+
+// The nt-th tile a block walks (the block's one tile for a problem
+// without the walking hook).
+template <class P>
+__device__ __forceinline__ typename P::Tile nth_tile(const typename P::Tile& t, int nt) {
+  if constexpr (walks_n<P>::value)
+    return P::nth(t, nt);
+  else
+    return t;
+}
+
+// One N tile's k loop on the consumers, its ring slots starting at it0
+// (the running count over the block's tiles): one wgmma group in flight
+// while the stage before it is released (one arrival per warp).  Returns
+// with every group complete and every stage of the tile released.
+template <class P>
+__device__ __forceinline__ void mma_k_loop(float (&acc)[P::BN / 2], const bf16* a_s,
+                                           const bf16* b_s, uint64_t* full,
+                                           uint64_t* empty, int it0, int n_k) {
+  constexpr int STAGES = P::STAGES;
+  constexpr int A_ELEMS = 2 * BOX * BOX;
+  constexpr int B_ELEMS = P::BN / BOX * BOX * BOX;
+  const int wg = threadIdx.x / 128;
+  const bool lead = threadIdx.x % 32 == 0;
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int it = it0 + kb;
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const bf16* a = a_s + s * A_ELEMS + wg * BOX * BOX;
+    const bf16* b = b_s + s * B_ELEMS;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_tile<P::BN, P::A_MN ? 1 : 0, P::B_MN ? 1 : 0>(
+          acc, operand_desc<P::A_MN>(a, kk), operand_desc<P::B_MN>(b, kk));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (kb > 0 && lead) mbar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (n_k > 0 && lead) mbar_arrive(&empty[(it0 + n_k - 1) % STAGES]);
 }
 
 template <class P>
@@ -305,6 +371,8 @@ __global__ void __launch_bounds__(threads<P>(), P::CTAS)
 
   const typename P::Tile tile = P::tile(prm);
   const int n_k = tile.k_blocks;
+  int n_n = 1;
+  if constexpr (walks_n<P>::value) n_n = tile.n_tiles;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -319,64 +387,64 @@ __global__ void __launch_bounds__(threads<P>(), P::CTAS)
     if constexpr (P::CTAS == 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == CONSUMERS) {
-      for (int kb = 0; kb < n_k; ++kb) {
-        const int s = kb % STAGES;
-        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
-        bf16* a = a_s + s * (A_BYTES / 2);
-        bf16* b = b_s + s * (B_BYTES / 2);
+      int it = 0;  // ring slots used, over the block's tiles
+      for (int nt = 0; nt < n_n; ++nt) {
+        const typename P::Tile t = nth_tile<P>(tile, nt);
+        for (int kb = 0; kb < n_k; ++kb, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+          bf16* a = a_s + s * (A_BYTES / 2);
+          bf16* b = b_s + s * (B_BYTES / 2);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          P::load_a(&map_a, prm, tile, kb, j, a + j * BOX * BOX, &full[s]);
+          for (int j = 0; j < 2; ++j)
+            P::load_a(&map_a, prm, t, kb, j, a + j * BOX * BOX, &full[s]);
 #pragma unroll
-        for (int j = 0; j < BN / BOX; ++j)
-          P::load_b(&map_b, prm, tile, kb, j, b + j * BOX * BOX, &full[s]);
+          for (int j = 0; j < BN / BOX; ++j)
+            P::load_b(&map_b, prm, t, kb, j, b + j * BOX * BOX, &full[s]);
+        }
       }
     }
   } else {
     if constexpr (P::CTAS == 1)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int wg = threadIdx.x / 128;
-    const int lane = threadIdx.x % 32;
-    float acc[BN / 2];
+    if constexpr (walks_n<P>::value) {
+      // Every tile in turn: its k loop, then its epilogue from the
+      // registers while the producer refills the ring with the next's.
+      typename P::State st;
+      float acc[BN / 2];
+      for (int i = 0; i < n_n; ++i) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    for (int kb = 0; kb < n_k; ++kb) {
-      const int s = kb % STAGES;
-      mbar_wait(&full[s], (kb / STAGES) & 1);
-      const bf16* a = a_s + s * (A_BYTES / 2) + wg * BOX * BOX;
-      const bf16* b = b_s + s * (B_BYTES / 2);
-      fence_acc(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_tile<BN, P::A_MN ? 1 : 0, P::B_MN ? 1 : 0>(
-            acc, operand_desc<P::A_MN>(a, kk), operand_desc<P::B_MN>(b, kk));
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_acc(acc);
-      if (kb > 0 && lane == 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-
-    // The accumulator tile to shared memory, over the drained ring.
-    consumer_sync();
-    float* tile_s = reinterpret_cast<float*>(smem);
-    {
-      const int w = (threadIdx.x % 128) / 32;
-      const int r = wg * 64 + w * 16 + lane / 4;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = j * 8 + (lane % 4) * 2;
-        *reinterpret_cast<float2*>(tile_s + r * ldp(BN) + c) =
-            make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(tile_s + (r + 8) * ldp(BN) + c) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+        mma_k_loop<P>(acc, a_s, b_s, full, empty, i * n_k, n_k);
+        P::reg_epilogue(prm, P::nth(tile, i), acc, st, threadIdx.x);
       }
+    } else {
+      const int lane = threadIdx.x % 32;
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      mma_k_loop<P>(acc, a_s, b_s, full, empty, 0, n_k);
+
+      // The accumulator tile to shared memory, over the drained ring.
+      consumer_sync();
+      float* tile_s = reinterpret_cast<float*>(smem);
+      {
+        const int wg = threadIdx.x / 128;
+        const int w = (threadIdx.x % 128) / 32;
+        const int r = wg * 64 + w * 16 + lane / 4;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = j * 8 + (lane % 4) * 2;
+          *reinterpret_cast<float2*>(tile_s + r * ldp(BN) + c) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(tile_s + (r + 8) * ldp(BN) + c) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+      consumer_sync();
+      P::epilogue(prm, tile, tile_s, tile_s + BM * ldp(BN), threadIdx.x);
     }
-    consumer_sync();
-    P::epilogue(prm, tile, tile_s, tile_s + BM * ldp(BN), threadIdx.x);
   }
 }
 

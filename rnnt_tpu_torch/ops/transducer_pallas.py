@@ -14,10 +14,11 @@ operands (those exist for vocabulary sharding; the function is the same).
 
 Bound on an H100: operations — 2*B*T*U1*H*V flops, 0.28 ms at the eval
 shape (4, 504, 65, 1024, 1024) at 989 TFLOP/s bf16, against ~1.6 MB of
-output.  The kernel tiles the flattened lattice 64 cells per block, stages
-the tanh rows in shared memory once and multiplies them on the tensor
-cores (ldmatrix + mma.sync) against W slabs streamed through a cp.async
-ring, while walking V with an online logsumexp; ragged T and U need no
+output.  The kernel writes h = tanh(enc + pred) once to a bf16 workspace
+(the device function K2 rounds h with), then multiplies it by W on the
+TMA-fed wgmma mainloop K2's products share (``csrc/sm90_gemm.cuh``): a
+block per 128 rows of the flattened lattice walks every V tile, keeping an
+online logsumexp in the accumulator's registers; ragged T and U need no
 padding.
 
 ``fused_joint_outputs_plain`` is the same function in plain PyTorch (the
@@ -52,8 +53,7 @@ from rnnt_tpu_torch.ops.transducer import NEG, lattice_nll, reduce_losses
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 K1 = CudaKernel(
-    "joint_fwd", "rnnt_joint_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "joint_fwd", "rnnt_joint_fwd", [_P] * 9 + [_I] * 7 + [_P],
     replaces="rnnt_tpu/ops/transducer_pallas.py:65 _fwd_kernel")
 K2 = CudaKernel(
     "joint_bwd", "rnnt_joint_bwd",
@@ -88,6 +88,11 @@ def _check_joint(enc, pred, w, b, labels, blank: int):
     return B, T, U1, H, V
 
 
+# Lattice rows (B*T*U1) K1 and K2 take: their row indices, TMA coordinates
+# and grids are 32-bit, with room to spare (the entry points refuse more).
+MAX_ROWS = (1 << 31) // 8
+
+
 def fused_joint_forward(enc, pred, w, b, labels, blank: int):
     """Same contract as ``fused_joint_outputs_plain``; on CUDA, enc, pred
     and w must be bf16 and every input contiguous."""
@@ -95,11 +100,7 @@ def fused_joint_forward(enc, pred, w, b, labels, blank: int):
         return fused_joint_outputs_plain(enc, pred, w, b, labels, blank)
     if enc.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or the CPU, got {enc.device}")
-    B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank)
-    outs = [torch.empty((B, T, U1), dtype=torch.float32, device=enc.device)
-            for _ in range(3)]
-    K1.launch(enc, pred, w, b, labels, *outs, B, T, U1, H, V, blank)
-    return tuple(outs)
+    return _joint_forward_kernel(enc, pred, w, b, labels, blank)
 
 
 # Rows of the lattice per step of the plain backward: bounds its (rows, V)
@@ -167,25 +168,54 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank, g_label,
-                           g_lse, grad_clamp):
-    """K2's launch.  Its tensor maps need rows of a multiple of 16 bytes:
-    where H or V is not a multiple of 8, enc, pred and W are copied into
-    zero-padded buffers of width Hp and Vp (no config has such widths), and
-    the outputs are cropped back.  h (N, Hp) and dl (N, Vp), N = B*T*U1,
-    are bf16 workspaces."""
-    B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank)
-    dev = enc.device
-    for name, x in (("lse", lse), ("g_blank", g_blank), ("g_label", g_label),
-                    ("g_lse", g_lse)):
-        check_cuda_tensor(name, x, torch.float32, (B, T, U1), dev)
+def _padded_operands(enc, pred, w):
+    """(enc, pred, w, Hp, Vp) for K1's and K2's tensor maps, which need rows
+    of a multiple of 16 bytes: where H or V is not a multiple of 8, enc,
+    pred and W are copied into zero-padded buffers of width Hp and Vp (no
+    config has such widths); each is copied again only where its data does
+    not start on 16 bytes."""
+    H, V = w.shape
     Hp, Vp = -(-H // 8) * 8, -(-V // 8) * 8
     if Hp != H:
         enc = torch.nn.functional.pad(enc, (0, Hp - H))
         pred = torch.nn.functional.pad(pred, (0, Hp - H))
     if Hp != H or Vp != V:
         w = torch.nn.functional.pad(w, (0, Vp - V, 0, Hp - H))
-    enc, pred, w = _aligned(enc), _aligned(pred), _aligned(w)
+    return _aligned(enc), _aligned(pred), _aligned(w), Hp, Vp
+
+
+def _check_rows(name: str, B: int, T: int, U1: int) -> None:
+    if B * T * U1 >= MAX_ROWS:
+        raise ValueError(f"{name}: B*T*U1 = {B * T * U1} lattice rows, the kernel takes "
+                         f"fewer than {MAX_ROWS} (32-bit row indices)")
+
+
+def _joint_forward_kernel(enc, pred, w, b, labels, blank):
+    """K1's launch on enc, pred and W padded as ``_padded_operands`` pads
+    them, with h (N, Hp), N = B*T*U1, a bf16 workspace; the bias is read
+    only below V."""
+    B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank)
+    _check_rows("K1", B, T, U1)
+    dev = enc.device
+    enc, pred, w, Hp, Vp = _padded_operands(enc, pred, w)
+    h_ws = torch.empty((B * T * U1, Hp), dtype=torch.bfloat16, device=dev)
+    outs = [torch.empty((B, T, U1), dtype=torch.float32, device=dev) for _ in range(3)]
+    K1.launch(enc, pred, w, _aligned(b), labels, h_ws, *outs, B, T, U1, Hp, V, Vp, blank)
+    return tuple(outs)
+
+
+def _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank, g_label,
+                           g_lse, grad_clamp):
+    """K2's launch on enc, pred and W padded as ``_padded_operands`` pads
+    them; the outputs are cropped back.  h (N, Hp) and dl (N, Vp),
+    N = B*T*U1, are bf16 workspaces."""
+    B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank)
+    _check_rows("K2", B, T, U1)
+    dev = enc.device
+    for name, x in (("lse", lse), ("g_blank", g_blank), ("g_label", g_label),
+                    ("g_lse", g_lse)):
+        check_cuda_tensor(name, x, torch.float32, (B, T, U1), dev)
+    enc, pred, w, Hp, Vp = _padded_operands(enc, pred, w)
     h_ws = torch.empty((B * T * U1, Hp), dtype=torch.bfloat16, device=dev)
     dl_ws = torch.empty((B * T * U1, Vp), dtype=torch.bfloat16, device=dev)
     denc = torch.zeros((B, T, Hp), dtype=torch.float32, device=dev)

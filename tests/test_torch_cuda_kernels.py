@@ -14,7 +14,9 @@ bits, so a few dl values round to the neighbouring bf16 (2^-8 relative),
 and fp32 atomics sum in a varying order.  K4: the gradients are
 exp(alpha + lp + beta - ll) with exponents summed from O(10^2-10^3)
 log-probs in another order, so atol 1e-4, rtol 3e-3.  K5 copies values:
-bit-equal.  K6 and K7 take K3's and K4's tolerances.
+bit-equal.  K6 and K7 take K3's and K4's tolerances.  K2's softmax formed
+against K1's lse sums to 1 within 1e-5 (both kernels round h by one
+device function and sum the same logits).
 """
 
 import math
@@ -49,11 +51,13 @@ def _close(got, want, atol, rtol):
 
 
 @pytest.mark.parametrize("shape", [
-    (2, 19, 7, 64, 48),        # one partial V chunk
-    (1, 5, 130, 100, 1000),    # H % 8 != 0: scalar h staging
-    (2, 9, 5, 36, 37),         # V % 8 != 0: W staged without cp.async
+    (2, 19, 7, 64, 48),        # one partial V tile
+    (1, 5, 130, 100, 1000),    # H % 8 != 0: enc, pred, W zero-padded
+    (2, 9, 5, 36, 37),         # H, V % 8 != 0: columns past V out of the sum
     (3, 33, 65, 1024, 1024),   # the eval widths, ragged row tiles
-    (1, 7, 9, 2048, 256),      # H too wide for 64-row tiles: 32-row tiles
+    (1, 7, 9, 2048, 256),      # scaled_tp's joint width, one V tile
+    (2, 32, 17, 2048, 1024),   # scaled_tp's joint width, four V tiles
+    (128, 16, 16, 1024, 1024),  # the banded patches of the pruned loss
 ])
 def test_k1_matches_plain(cuda, shape):
     B, T, U1, H, V = shape
@@ -170,6 +174,22 @@ def test_k2_matches_plain(cuda, shape, clamp):
     want = fused_joint_bwd_plain(*args, lse, g_blank, g_label, g_lse, clamp)
     for name, x, y in zip(("denc", "dpred", "dW", "db"), got, want):
         assert _rel_l2(x, y) < 5e-3, (name, _rel_l2(x, y))
+
+
+def test_k1_k2_softmax_sums_to_one(cuda):
+    """K2 fed K1's lse, with g_lse one-hot at a single row and the other
+    cotangents zero: its db is that row's softmax, exp(logits - lse), so it
+    sums to 1 only if K1 and K2 form the same h and logits.  8 rows spread
+    over the row tiles, at the eval widths; within 1e-5."""
+    args = _joint_case((2, 40, 33, 1024, 1024), cuda, 8)
+    lse = fused_joint_outputs(*args)[0]
+    zeros = torch.zeros_like(lse)
+    n = lse.numel()
+    for row in (0, 127, 128, 1000, 1331, 1792, n - 129, n - 1):
+        g_lse = torch.zeros_like(lse)
+        g_lse.view(-1)[row] = 1.0
+        db = fused_joint_backward(*args, lse, zeros, zeros, g_lse)[3]
+        assert abs(float(db.double().sum()) - 1.0) <= 1e-5, row
 
 
 @pytest.mark.parametrize("shape,t_lens,banded", LATTICE_CASES, ids=LATTICE_IDS)
