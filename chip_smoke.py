@@ -32,7 +32,11 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    into 4, each shard at its global row offset with the previous (K6) or
    next (K7) shard's carry and t_lens that end inside, at the edge of and
    before a shard, against their plain versions; the chain of shards
-   against K3 + K4 on the whole lattice; times per shard;
+   against K3 + K4 on the whole lattice; per shard the burst time (20
+   back-to-back launches of the C entry point between two events), the
+   device time (torch.profiler) and the events time around one wrapper
+   call, beside the bytes bound and a critical-path bound (the shard's
+   diagonals x one LSE step);
 3b. augmentation phase (slice 3): ``device_augment_full`` on one
    full-width batch from a fixed generator, through K5 and with K5's plain
    version in its place: identical audio and lens, lens in (0, L], zero
@@ -87,10 +91,12 @@ augmentation (after the gradient check): device time by kernel and by
 group (K1-K7, cuDNN's convolutions, the rest) per batch or step, the
 card's busy and idle share, and ``DIR/eval_trace.json.gz``,
 ``DIR/train_trace.json.gz`` and ``DIR/train_aug_trace.json.gz``.
-``--parent-lattice DIR`` builds another tree's K3 and K4 sources from DIR
-(``alpha_fwd.cu``, ``beta_bwd.cu`` and their headers) with the same flags
-and times them in turns with this tree's (other, this, this, other) at
-the eval and long shapes, after checking both against the plain versions.
+``--parent-lattice DIR`` builds another tree's K3, K4, K6 and K7 sources
+from DIR (``alpha_fwd.cu``, ``beta_bwd.cu``, ``alpha_chain.cu``,
+``beta_chain.cu`` and their headers) with the same flags and times them in
+turns with this tree's (other, this, this, other): K3 and K4 at the eval
+and long shapes, K6 and K7 on every shard of both chain cases, after
+checking both trees against the plain versions.
 ``--parent-joint DIR`` (repeatable) does the same for another tree's K1
 (``joint_fwd.cu`` and its headers, called through that tree's own C
 signature) at the eval and banded shapes.
@@ -642,26 +648,61 @@ def check_live(name, got, want, tol) -> float:
     return check_close(name, got[live], want[live], **tol)
 
 
+def chain_inputs(dims, n: int, device):
+    """(lp_blank, lp_label, t_lens, u_lens, shards) of a chain case: the
+    lattice of ``k3_inputs`` (seed 3) with ``chain_lens``' t_lens, and its
+    n shards [(t0, lp_blank rows, lp_label rows)]."""
+    lpb, lpl, t_lens, u_lens = k3_inputs(**dims, device=device, seed=3)
+    t_lens = chain_lens(dims["T"], n, t_lens)
+    rows = -(-dims["T"] // n)
+    return lpb, lpl, t_lens, u_lens, [
+        (s * rows, lpb[:, s * rows:(s + 1) * rows].contiguous(),
+         lpl[:, s * rows:(s + 1) * rows].contiguous()) for s in range(n)]
+
+
+def chain_path_ms(rows: int, U1: int, t_lens, t0: int, kernel: str, lse_ms: float) -> float:
+    """The critical-path bound of one shard: its dependent LSEs, one a
+    diagonal (rows + U1 - 1 for K6; for K7 the live rows of the sample
+    with the most, clamp(t_len - t0, 0, rows), + U1 - 1, and none when no
+    row is live) x one LSE step (``lse_step_ms``)."""
+    if kernel == "K7":
+        rows = int((t_lens.long() - t0).clamp(0, rows).max())
+        if rows == 0:
+            return 0.0
+    return (rows + U1 - 1) * lse_ms
+
+
+def c_call(fn, *args) -> None:
+    """Call a kernel's C entry point on the current stream (tensors become
+    their data pointers); raise on a CUDA error.  Not counted."""
+    from rnnt_tpu_torch.ops.kernels import ptr
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if fn(*[ptr(a) if isinstance(a, torch.Tensor) else a for a in args], stream) != 0:
+        raise RuntimeError("CUDA error at launch")
+
+
 def chain_kernel_phase(device, cases=CHAIN_CASES, reps=20) -> dict:
     """K6 and K7 on every shard of the eval lattice (2 shards) and the long
     lattice (4 shards), each shard at its nonzero t0 with the previous
     shard's carry and t_lens that end inside, at the edge of and before a
     shard: against their plain versions (K3_TOL, K4_TOL), then the chain of
-    shards against K3 + K4 on the whole lattice; times per shard (CUDA
-    events) beside the bound and the plain version's time."""
+    shards against K3 + K4 on the whole lattice.  Times per shard: burst
+    (``burst_ms`` of the C entry point), device (torch.profiler) and events
+    around one wrapper call, beside the bytes bound, the critical-path
+    bound and the plain version's time."""
     from rnnt_tpu_torch.ops.lattice_pallas import (
-        alpha_chain_forward, alpha_chain_plain, alpha_forward, beta_backward,
+        K6, K7, alpha_chain_forward, alpha_chain_plain, alpha_forward, beta_backward,
         beta_chain_backward, beta_chain_plain)
     from rnnt_tpu_torch.ops.transducer import NEG
 
+    on_card = torch.device(device).type == "cuda"
+    lse_ms = lse_step_ms(device)
     out = {}
     for tag, dims, n in cases:
-        lpb, lpl, t_lens, u_lens = k3_inputs(**dims, device=device, seed=3)
-        t_lens = chain_lens(dims["T"], n, t_lens)
+        lpb, lpl, t_lens, u_lens, shards = chain_inputs(dims, n, device)
         B, T, U1 = lpb.shape
-        rows = -(-T // n)
-        shards = [(s * rows, lpb[:, s * rows:(s + 1) * rows].contiguous(),
-                   lpl[:, s * rows:(s + 1) * rows].contiguous()) for s in range(n)]
+        rows = shards[0][1].shape[1]
         err6 = err7 = 0.0
         per_shard = []
         carry = torch.full((B, U1), NEG, device=device)
@@ -689,17 +730,33 @@ def chain_kernel_phase(device, cases=CHAIN_CASES, reps=20) -> dict:
                        check_close(f"K7 {tag} t0={t0} glpl", got[1], want[1], **K4_TOL),
                        check_live(f"K7 {tag} t0={t0} carry", got[2], want[2], K4_TOL))
             grads[s] = got[:2]
-            m = dict(t0=t0, rows=b.shape[1],
-                     k6_ms=cuda_ms(lambda: alpha_chain_forward(b, l, t_lens, u_lens, t0,
-                                                               carries_in[s]), reps),
-                     k7_ms=cuda_ms(lambda: beta_chain_backward(*args), reps),
+            R = b.shape[1]
+
+            def call6():
+                return alpha_chain_forward(b, l, t_lens, u_lens, t0, carries_in[s])
+
+            def call7():
+                return beta_chain_backward(*args)
+
+            m = dict(t0=t0, rows=R, k6_ms=cuda_ms(call6, reps), k7_ms=cuda_ms(call7, reps),
                      # the plain stages are Python loops of small launches (host
                      # time, 0.4-0.9 s a shard): one call each
                      k6_plain_ms=cuda_ms(lambda: alpha_chain_plain(b, l, t_lens, u_lens, t0,
                                                                    carries_in[s]), 1, warmup=0),
                      k7_plain_ms=cuda_ms(lambda: beta_chain_plain(*args), 1, warmup=0))
-            m["k6_bound_ms"], m["k6_bound_by"] = chain_bound(B, b.shape[1], U1, t_lens, t0, "K6")
-            m["k7_bound_ms"], m["k7_bound_by"] = chain_bound(B, b.shape[1], U1, t_lens, t0, "K7")
+            if on_card:
+                o6 = [torch.empty_like(b), torch.empty_like(ll), torch.empty_like(carry)]
+                o7 = [torch.empty_like(b), torch.empty_like(b), torch.empty_like(carry)]
+                m["k6_burst_ms"] = burst_ms(lambda: c_call(
+                    K6.fn(), b, l, t_lens, u_lens, carries_in[s], *o6, B, R, U1, t0))
+                m["k7_burst_ms"] = burst_ms(lambda: c_call(
+                    K7.fn(), b, l, alphas[s], t_lens, u_lens, ll, g, carry, *o7, B, R, U1, t0))
+                m["k6_device_ms"] = device_ms(call6, reps)
+                m["k7_device_ms"] = device_ms(call7, reps)
+            for k in ("k6", "k7"):
+                bound = chain_bound(B, R, U1, t_lens, t0, k.upper())
+                m[f"{k}_bound_ms"], m[f"{k}_bound_by"] = bound
+                m[f"{k}_path_ms"] = chain_path_ms(R, U1, t_lens, t0, k.upper(), lse_ms)
             per_shard.insert(0, m)
             carry = got[2]
         # The chain against K3 + K4 on the whole lattice.
@@ -714,17 +771,29 @@ def chain_kernel_phase(device, cases=CHAIN_CASES, reps=20) -> dict:
                      k3_ms=cuda_ms(lambda: alpha_forward(lpb, lpl, t_lens, u_lens), reps),
                      k4_ms=cuda_ms(lambda: beta_backward(lpb, lpl, alpha_full, t_lens,
                                                           u_lens, nll, g), reps))
+        if on_card:
+            for k in ("k6", "k7"):
+                for what in ("burst", "device"):
+                    chain[f"{k}_{what}_ms"] = sum(m[f"{k}_{what}_ms"] for m in per_shard)
+        nan = float("nan")
         log(f"K6/K7 {tag} ok {dims} in {n} shards of {rows} rows, t_lens "
             f"{t_lens.tolist()}: max abs err K6 {err6:.3e}, K7 {err7:.3e}; the chain "
-            "matches K3 + K4 on the whole lattice; per shard (t0: K6 ms / K7 ms, "
-            "bounds, plain) "
-            + "; ".join(f"{m['t0']}: {m['k6_ms']:.4f} / {m['k7_ms']:.4f} ms (bound "
-                        f"{m['k6_bound_ms']:.6f} / {m['k7_bound_ms']:.6f}, plain "
+            "matches K3 + K4 on the whole lattice; per shard (t0: K6 / K7 ms burst, "
+            "device, events; bounds bytes and critical path; plain) "
+            + "; ".join(f"{m['t0']}: {m.get('k6_burst_ms', nan):.4f} / "
+                        f"{m.get('k7_burst_ms', nan):.4f} burst, "
+                        f"{m.get('k6_device_ms', nan):.4f} / {m.get('k7_device_ms', nan):.4f} "
+                        f"device, {m['k6_ms']:.4f} / {m['k7_ms']:.4f} events (bound "
+                        f"{m['k6_bound_ms']:.6f} / {m['k7_bound_ms']:.6f} bytes, "
+                        f"{m['k6_path_ms']:.4f} / {m['k7_path_ms']:.4f} path; plain "
                         f"{m['k6_plain_ms']:.2f} / {m['k7_plain_ms']:.2f})"
                         for m in per_shard)
-            + f"; library ms: none; chain K6 {chain['k6_ms']:.4f} + K7 {chain['k7_ms']:.4f} "
-            f"ms against K3 {chain['k3_ms']:.4f} + K4 {chain['k4_ms']:.4f} ms")
+            + f"; library ms: none; chain K6 {chain.get('k6_burst_ms', nan):.4f} + K7 "
+            f"{chain.get('k7_burst_ms', nan):.4f} ms burst ({chain['k6_ms']:.4f} + "
+            f"{chain['k7_ms']:.4f} events) against K3 {chain['k3_ms']:.4f} + K4 "
+            f"{chain['k4_ms']:.4f} ms events on the whole lattice")
         out[tag] = dict(err6=err6, err7=err7, shards=per_shard, chain=chain, n=n,
+                        lse_step_ns=lse_ms * 1e6,
                         shape=f"B={B} T={rows} U1={U1} (T={T} in {n} shards)")
     return out
 
@@ -735,35 +804,56 @@ def burst_ms(fn, n: int = 20, reps: int = 5) -> float:
     return cuda_ms(lambda: [fn() for _ in range(n)], reps) / n
 
 
-def parent_lattice_phase(device, parent: Path) -> dict:
-    """K3 and K4 of another tree (``parent/alpha_fwd.cu`` and
-    ``parent/beta_bwd.cu`` with that tree's headers beside them) built with
-    the same flags, checked against this tree's plain versions (K3_TOL,
-    K4_TOL) and timed in turns with this tree's K3 and K4 (other, this,
-    this, other) at the eval and long shapes: the same C entry points on the
-    same buffers, ``burst_ms``.  Calls here are not counted."""
-    from rnnt_tpu_torch.ops.kernels import BUILD_DIR, NVCC_FLAGS, nvcc_path, ptr
-    from rnnt_tpu_torch.ops.lattice_pallas import K3, K4, alpha_plain, beta_plain
+def build_other_tree(parent: Path, kernels) -> dict:
+    """{kernel name: (C entry of ``parent/<name>.cu``, this tree's)}: each
+    kernel's source from another tree, built with this tree's flags (one
+    nvcc each, all started together) against that tree's headers beside
+    it, with this tree's C signature."""
+    from rnnt_tpu_torch.ops.kernels import BUILD_DIR, NVCC_FLAGS, nvcc_path
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs, procs = {}, []
-    for k in (K3, K4):
+    procs = []
+    for k in kernels:
         out = BUILD_DIR / f"other_{parent.name}_{k.name}.so"
         procs.append((k, out, subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(parent / f"{k.name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
     for k, out, proc in procs:
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {parent / k.name}.cu:\n{proc.stdout.read()}")
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {parent / k.name}.cu:\n{text}")
         fn = getattr(ctypes.CDLL(str(out)), k.symbol)
         fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
         libs[k.name] = (fn, k.fn())
-    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return libs
 
-    def call(fn, *args):
-        if fn(*[ptr(a) if isinstance(a, torch.Tensor) else a for a in args], stream()) != 0:
-            raise RuntimeError("CUDA error at launch")
 
+def turns(runs: dict) -> dict:
+    """{f"{who}_{what}": [burst ms, burst ms]} of runs {who: {what: fn}}
+    for who in ("other", "this"), timed in turns: other, this, this,
+    other."""
+    times = {f"{who}_{what}": [] for who, fns in runs.items() for what in fns}
+    for who in ("other", "this", "this", "other"):
+        for what, fn in runs[who].items():
+            times[f"{who}_{what}"].append(burst_ms(fn))
+    return times
+
+
+def parent_lattice_phase(device, parent: Path) -> dict:
+    """K3, K4, K6 and K7 of another tree (``parent/alpha_fwd.cu``,
+    ``beta_bwd.cu``, ``alpha_chain.cu`` and ``beta_chain.cu`` with that
+    tree's headers beside them) built with the same flags, checked against
+    this tree's plain versions (K3_TOL, K4_TOL) and timed in turns with
+    this tree's (other, this, this, other): K3 and K4 at the eval and long
+    shapes, K6 and K7 on every shard of CHAIN_CASES with the plain chain's
+    carries, the same C entry points on the same buffers, ``burst_ms``.
+    Calls here are not counted."""
+    from rnnt_tpu_torch.ops.lattice_pallas import (
+        K3, K4, K6, K7, alpha_chain_plain, alpha_plain, beta_chain_plain, beta_plain)
+    from rnnt_tpu_torch.ops.transducer import NEG
+
+    libs = build_other_tree(parent, (K3, K4, K6, K7))
     out = {}
     for tag, dims in (("eval", dict(B=4, T=504, U1=65)), ("long", K3_LONG)):
         lpb, lpl, t_lens, u_lens = k3_inputs(**dims, device=device)
@@ -773,24 +863,20 @@ def parent_lattice_phase(device, parent: Path) -> dict:
         want = beta_plain(lpb, lpl, alpha_p, t_lens, u_lens, nll_p, g)
         nll, alpha = torch.empty_like(nll_p), torch.empty_like(lpb)
         glpb, glpl = torch.empty_like(lpb), torch.empty_like(lpb)
-        m, errs = {}, {}
+        runs, errs = {}, {}
         for who, i in (("other", 0), ("this", 1)):
             k3, k4 = libs["alpha_fwd"][i], libs["beta_bwd"][i]
-            run3 = lambda k3=k3: call(k3, lpb, lpl, t_lens, u_lens, alpha, nll, B, T, U)
-            run4 = lambda k4=k4: call(k4, lpb, lpl, alpha_p, t_lens, u_lens, nll_p, g,
-                                      glpb, glpl, B, T, U)
+            run3 = lambda k3=k3: c_call(k3, lpb, lpl, t_lens, u_lens, alpha, nll, B, T, U)
+            run4 = lambda k4=k4: c_call(k4, lpb, lpl, alpha_p, t_lens, u_lens, nll_p, g,
+                                        glpb, glpl, B, T, U)
             run3()
             run4()
             sync(device)
             errs[who] = (check_k3(nll, alpha, nll_p, alpha_p, t_lens, u_lens),
                          max(check_close(f"{who} K4 {tag} {n}", x, y, **K4_TOL)
                              for n, x, y in zip(("glpb", "glpl"), (glpb, glpl), want)))
-            m[who] = (run3, run4)
-        times = {f"{who}_{k}": [] for who in ("other", "this") for k in ("k3", "k4")}
-        for who in ("other", "this", "this", "other"):
-            run3, run4 = m[who]
-            times[f"{who}_k3"].append(burst_ms(run3))
-            times[f"{who}_k4"].append(burst_ms(run4))
+            runs[who] = dict(k3=run3, k4=run4)
+        times = turns(runs)
         out[tag] = dict(times, errs=errs)
         log(f"K3/K4 {tag} {dims} against {parent}: both right (max abs err K3 / K4: "
             f"other {errs['other'][0]:.3e} / {errs['other'][1]:.3e}, this "
@@ -799,8 +885,63 @@ def parent_lattice_phase(device, parent: Path) -> dict:
             f"{times['this_k3'][1]:.4f}, {times['other_k3'][1]:.4f}; K4 "
             f"{times['other_k4'][0]:.4f}, {times['this_k4'][0]:.4f}, "
             f"{times['this_k4'][1]:.4f}, {times['other_k4'][1]:.4f}; this tree "
-            f"{min(times['other_k3']) / max(times['this_k3']):.1f}x (K3) and "
-            f"{min(times['other_k4']) / max(times['this_k4']):.1f}x (K4) faster")
+            f"{min(times['other_k3']) / max(times['this_k3']):.2f}x (K3) and "
+            f"{min(times['other_k4']) / max(times['this_k4']):.2f}x (K4) faster")
+
+    out["chain"] = {}
+    for tag, dims, n in CHAIN_CASES:
+        lpb, lpl, t_lens, u_lens, shards = chain_inputs(dims, n, device)
+        B, _, U1 = lpb.shape
+        # The plain chain: each shard's carry in and outputs, both ways.
+        fwd, bwd = [], [None] * n
+        carry = torch.full((B, U1), NEG, device=device)
+        for t0, b, l in shards:
+            fwd.append((carry, alpha_chain_plain(b, l, t_lens, u_lens, t0, carry)))
+            carry = fwd[-1][1][2]
+        ll = sum(w[1] for _, w in fwd)
+        g = torch.ones_like(ll)
+        carry = torch.full((B, U1), NEG, device=device)
+        for s in reversed(range(n)):
+            t0, b, l = shards[s]
+            bwd[s] = (carry, beta_chain_plain(b, l, fwd[s][1][0], t_lens, u_lens, ll, g, t0,
+                                              carry))
+            carry = bwd[s][1][2]
+        per_shard = []
+        for s, (t0, b, l) in enumerate(shards):
+            rows = b.shape[1]
+            (c6, want6), (c7, want7) = fwd[s], bwd[s]
+            o6 = [torch.empty_like(b), torch.empty_like(ll), torch.empty_like(c6)]
+            o7 = [torch.empty_like(b), torch.empty_like(b), torch.empty_like(c7)]
+            runs, errs = {}, {}
+            for who, i in (("other", 0), ("this", 1)):
+                k6, k7 = libs["alpha_chain"][i], libs["beta_chain"][i]
+                run6 = lambda k6=k6: c_call(k6, b, l, t_lens, u_lens, c6, *o6, B, rows, U1, t0)
+                run7 = lambda k7=k7: c_call(k7, b, l, want6[0], t_lens, u_lens, ll, g, c7, *o7,
+                                            B, rows, U1, t0)
+                run6()
+                run7()
+                sync(device)
+                name = f"{who} {tag} t0={t0}"
+                errs[who] = (
+                    max(check_live(f"{name} K6 alpha", o6[0], want6[0], K3_TOL),
+                        check_close(f"{name} K6 ll", o6[1], want6[1], **K3_TOL),
+                        check_live(f"{name} K6 carry", o6[2], want6[2], K3_TOL)),
+                    max(check_close(f"{name} K7 glpb", o7[0], want7[0], **K4_TOL),
+                        check_close(f"{name} K7 glpl", o7[1], want7[1], **K4_TOL),
+                        check_live(f"{name} K7 carry", o7[2], want7[2], K4_TOL)))
+                runs[who] = dict(k6=run6, k7=run7)
+            per_shard.append(dict(t0=t0, rows=rows, errs=errs, **turns(runs)))
+        out["chain"][tag] = per_shard
+        log(f"K6/K7 {tag} {dims} in {n} shards against {parent}: both right on every "
+            "shard; burst ms (other, this, this, other) per shard "
+            + "; ".join(
+                f"t0={m['t0']}: K6 " + ", ".join(f"{x:.4f}" for x in (
+                    m["other_k6"][0], m["this_k6"][0], m["this_k6"][1], m["other_k6"][1]))
+                + " K7 " + ", ".join(f"{x:.4f}" for x in (
+                    m["other_k7"][0], m["this_k7"][0], m["this_k7"][1], m["other_k7"][1]))
+                + f" (this tree {min(m['other_k6']) / max(m['this_k6']):.1f}x / "
+                f"{min(m['other_k7']) / max(m['this_k7']):.1f}x faster)"
+                for m in per_shard))
     return out
 
 
@@ -1848,8 +1989,9 @@ def grad_phase(device, kernels, train: dict) -> dict:
 # hand-written kernels by function name, cuDNN's convolutions by theirs.
 TRACE_GROUPS = (("K1", r"gemm_kernel<[^>]*LsePass>|::fwd_h_kernel\("),
                 ("K2", r"gemm_kernel<[^>]*(DlPass|DhPass|DwPass)>|::h_kernel\("),
-                ("K3", r"alpha_fwd_kernel"), ("K4", r"beta_bwd_kernel"),
-                ("K5", r"window_gather_kernel"), ("K6/K7", r"_chain_kernel"),
+                ("K3", r"alpha_sweep<\d+, *(false|\(bool\)0)>"),
+                ("K4", r"beta_sweep<\d+, *(false|\(bool\)0)>"),
+                ("K5", r"window_gather_kernel"), ("K6/K7", r"_sweep<\d+, *(true|\(bool\)1)>"),
                 ("convolutions", r"(?i)conv|cudnn|fprop|dgrad|wgrad"))
 
 
@@ -2008,9 +2150,9 @@ def main() -> None:
                          "other card, the T-sharded and data-parallel steps against 1 "
                          "rank, NCCL's transport costs)")
     ap.add_argument("--parent-lattice", metavar="DIR", type=Path, default=None,
-                    help="also build alpha_fwd.cu and beta_bwd.cu of another tree "
-                         "from DIR (with its headers) and time them in turns with "
-                         "this tree's K3 and K4")
+                    help="also build alpha_fwd.cu, beta_bwd.cu, alpha_chain.cu and "
+                         "beta_chain.cu of another tree from DIR (with its headers) and "
+                         "time them in turns with this tree's K3, K4, K6 and K7")
     ap.add_argument("--parent-joint", metavar="DIR", type=Path, action="append", default=[],
                     help="also build joint_fwd.cu of another tree from DIR (with its "
                          "headers; repeatable) and time it in turns with this tree's K1")
@@ -2063,10 +2205,14 @@ def main() -> None:
     chain = chain_kernel_phase(device)
     if args.parent_lattice is not None:
         other = parent_lattice_phase(device, args.parent_lattice.resolve())
-        measured["K3"]["other_tree"] = {t: {"k3_ms": c["other_k3"], "this_k3_ms": c["this_k3"]}
-                                        for t, c in other.items()}
-        measured["K4"]["other_tree"] = {t: {"k4_ms": c["other_k4"], "this_k4_ms": c["this_k4"]}
-                                        for t, c in other.items()}
+        for key in ("k3", "k4"):
+            measured[key.upper()]["other_tree"] = {
+                t: {f"{key}_ms": other[t][f"other_{key}"],
+                    f"this_{key}_ms": other[t][f"this_{key}"]} for t in ("eval", "long")}
+        for tag, shards in other["chain"].items():
+            chain[tag]["other_tree"] = [
+                {k: m[k] for k in ("t0", "rows", "other_k6", "this_k6", "other_k7", "this_k7")}
+                for m in shards]
     if args.parent_joint:
         other = parent_joint_phase(device, [d.resolve() for d in args.parent_joint])
         measured["K1"]["other_tree"] = other
@@ -2126,9 +2272,18 @@ def main() -> None:
             bound_ms=statistics.mean(m[f"{plain}_bound_ms"] for m in ev["shards"]),
             bound_by=ev["shards"][0][f"{plain}_bound_by"], library_ms=None,
             library_note="no single PyTorch call computes this function",
-            shape=ev["shape"] + "; ms, plain_ms and bound_ms are means over the shards",
+            burst_ms=statistics.mean(m[f"{plain}_burst_ms"] for m in ev["shards"]),
+            device_ms=statistics.mean(m[f"{plain}_device_ms"] for m in ev["shards"]),
+            critical_path_ms=statistics.mean(m[f"{plain}_path_ms"] for m in ev["shards"]),
+            lse_step_ns=ev["lse_step_ns"],
+            shape=ev["shape"] + "; ms (events), burst_ms, device_ms, plain_ms, bound_ms and "
+                  "critical_path_ms are means over the shards",
             shards={tag: c["shards"] for tag, c in chain.items()},
-            chain={tag: c["chain"] for tag, c in chain.items()}, long_case=lg["shape"]))
+            chain={tag: c["chain"] for tag, c in chain.items()}, long_case=lg["shape"],
+            **({"other_tree": {tag: [{k: m[k] for k in ("t0", "rows", f"other_{plain}",
+                                                          f"this_{plain}")}
+                                     for m in c["other_tree"]] for tag, c in chain.items()}}
+               if "other_tree" in ev else {})))
     multi = {key: dict(gaps=r["gaps"], seconds=r["seconds"], eval_launches=r["eval_launches"],
                        steps=[{k: s[k] for k in ("step", "loss", "grad_norm", "seconds")}
                               for s in r["steps2"]])

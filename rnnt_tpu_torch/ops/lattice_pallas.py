@@ -15,12 +15,14 @@ they are ``csrc/alpha_chain.cu`` and ``csrc/beta_chain.cu``.
 
 Bound on an H100: latency.  At the eval shape (B 4, T' 504, U+1 65) K3
 moves ~1.6 MB and K4 ~2.6 MB — about 0.5 and 0.8 us at 3.35 TB/s — but the
-recursion's critical path is T + U - 1 = 568 dependent log-sum-exps.  K3
-and K4 are anti-diagonal wavefronts (``csrc/lattice_wave.cuh``): a block a
-sample, a thread a column, one LSE and one barrier a diagonal, the inputs
-staged through a shared-memory ring by 8-column strips and the outputs
-written back the same way.  K6 and K7 keep the row scans of
-``csrc/lattice_rows.cuh`` (one warp a sample, ~13 dependent LSEs a row).
+recursion's critical path is T + U - 1 = 568 dependent log-sum-exps.  All
+four are one anti-diagonal wavefront (``csrc/lattice_wave.cuh``): a block
+a sample, a thread a column, one LSE and one barrier a diagonal, the
+inputs staged through a shared-memory ring by 8-column strips and the
+outputs written back the same way.  The alpha sweep is K3 and K6, the beta
+sweep K4 and K7, each a kernel template whose ``Chain`` flag adds the
+shard's ends (carry in, carry out, local rows at t0); the four ``.cu``
+files are their C entry points.
 
 ``alpha_plain``, ``beta_plain``, ``alpha_chain_plain`` and
 ``beta_chain_plain`` are the same functions in plain PyTorch (the CPU path

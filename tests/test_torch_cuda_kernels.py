@@ -14,7 +14,8 @@ bits, so a few dl values round to the neighbouring bf16 (2^-8 relative),
 and fp32 atomics sum in a varying order.  K4: the gradients are
 exp(alpha + lp + beta - ll) with exponents summed from O(10^2-10^3)
 log-probs in another order, so atol 1e-4, rtol 3e-3.  K5 copies values:
-bit-equal.  K6 and K7 take K3's and K4's tolerances.  K2's softmax formed
+bit-equal.  K6 and K7 take K3's and K4's tolerances, and on one shard at
+t0 = 0 equal K3 and K4 bit for bit (one sweep).  K2's softmax formed
 against K1's lse sums to 1 within 1e-5 (both kernels round h by one
 device function and sum the same logits).
 """
@@ -208,23 +209,40 @@ def test_k4_matches_plain(cuda, shape, t_lens, banded):
         _close(x, y, atol=1e-4, rtol=3e-3)
 
 
-@pytest.mark.parametrize("shape,n", [((4, 40, 17), 2), ((4, 150, 31), 3),
-                                     ((4, 64, 300), 4)])
-def test_k6_k7_match_plain_on_every_shard(cuda, shape, n):
+# The chains K6 and K7 are held to: (lattice, shards, t_lens, banded).  None
+# takes t_lens that end inside a later shard, at the edge of a shard, before
+# the last shard and at T (chain_lens).  Besides the first three, the
+# wavefront's edges on a shard: U1 = 1, 1-row shards, shards of 33 and 257
+# rows, U1 > rows, U1 = 1024 (two columns a lane), samples with no live row
+# in later shards and with t_len - 1 at a shard's first row, and lattices
+# from banded_to_full.
+CHAIN_CASES = [
+    ((4, 40, 17), 2, None, False), ((4, 150, 31), 3, None, False),
+    ((4, 64, 300), 4, None, False), ((3, 9, 1), 3, None, False),
+    ((4, 5, 9), 5, [1, 2, 5, 3], False), ((2, 66, 33), 2, None, False),
+    ((2, 514, 65), 2, None, False), ((2, 40, 1024), 2, None, False),
+    ((4, 48, 20), 3, [1, 16, 17, 48], False), ((4, 120, 65), 2, [120, 97, 64, 30], True),
+    ((4, 504, 65), 2, None, True),
+]
+CHAIN_IDS = ["x".join(map(str, c[0])) + f"-{c[1]}" + ("-lens" if c[2] else "")
+             + ("-banded" if c[3] else "") for c in CHAIN_CASES]
+
+
+def chain_lens(T, n, B):
+    rows = -(-T // n)
+    return [rows + rows // 2, rows, rows // 2, T][:B]
+
+
+@pytest.mark.parametrize("shape,n,t_lens,banded", CHAIN_CASES, ids=CHAIN_IDS)
+def test_k6_k7_match_plain_on_every_shard(cuda, shape, n, t_lens, banded):
     """The chain of n shards at their t0, each shard's carry from the
-    previous (K6) or next (K7) shard's kernel; t_lens end inside, at the
-    edge of and before a shard."""
+    previous (K6) or next (K7) shard's kernel, against the plain stages on
+    the same inputs; the shards' ll parts sum to the plain NLL."""
     B, T, U1 = shape
     g = torch.Generator().manual_seed(sum(shape))
-    lpb = (torch.randn(B, T, U1, generator=g) - 1.5).to(cuda)
-    lpl = torch.randn(B, T, U1, generator=g) - 1.5
-    u_lens = torch.randint(0, U1, (B,), generator=g, dtype=torch.int32)
-    lpl = torch.where(torch.arange(U1)[None, None, :] < u_lens[:, None, None],
-                      lpl, torch.full_like(lpl, NEG)).to(cuda)
+    lens = chain_lens(T, n, B) if t_lens is None else t_lens
+    lpb, lpl, t_lens, u_lens = [x.to(cuda) for x in _lattice_inputs(shape, lens, banded, 0, g)]
     rows = -(-T // n)
-    t_lens = torch.tensor([rows + rows // 2, rows, rows // 2, T], dtype=torch.int32,
-                          device=cuda)
-    u_lens = u_lens.to(cuda)
     blocks = [(s * rows, lpb[:, s * rows:(s + 1) * rows].contiguous(),
                lpl[:, s * rows:(s + 1) * rows].contiguous()) for s in range(n)]
     carry = torch.full((B, U1), NEG, device=cuda)
@@ -235,11 +253,14 @@ def test_k6_k7_match_plain_on_every_shard(cuda, shape, n):
         torch.cuda.synchronize()
         assert K6.launches == before + 1
         want = alpha_chain_plain(b, l, t_lens, u_lens, t0, carry)
-        live = want[0] > NEG / 2
-        _close(got[0][live], want[0][live], atol=1e-3, rtol=1e-5)
+        for x, y in (got[0], want[0]), (got[2], want[2]):
+            live = y > NEG / 2
+            _close(x[live], y[live], atol=1e-3, rtol=1e-5)
+            assert (x[~live] <= NEG / 2).all()
         _close(got[1], want[1], atol=1e-3, rtol=1e-5)
         alphas.append(got[0])
         ll, carry = ll + got[1], got[2]
+    _close(-ll, alpha_plain(lpb, lpl, t_lens, u_lens)[0], atol=1e-3, rtol=1e-5)
     cot = torch.randn(B, generator=g).to(cuda)
     carry = torch.full((B, U1), NEG, device=cuda)
     for (t0, b, l), a in reversed(list(zip(blocks, alphas))):
@@ -253,7 +274,29 @@ def test_k6_k7_match_plain_on_every_shard(cuda, shape, n):
             _close(x, y, atol=1e-4, rtol=3e-3)
         live = want[2] > NEG / 2
         _close(got[2][live], want[2][live], atol=1e-4, rtol=3e-3)
+        assert (got[2][~live] <= NEG / 2).all()
         carry = got[2]
+
+
+@pytest.mark.parametrize("shape,t_lens,banded", LATTICE_CASES, ids=LATTICE_IDS)
+def test_k6_k7_on_one_shard_are_k3_k4(cuda, shape, t_lens, banded):
+    """One shard at t0 = 0 is the whole lattice, and K6/K7 run K3/K4's
+    sweep: K6 with a carry_in that the seed overrides gives K3's alpha and
+    negated NLL, and K7 with ll = -nll (its carry_in unread) K4's
+    gradients, bit for bit."""
+    B, _, U1 = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    args = [x.to(cuda) for x in _lattice_inputs(shape, t_lens, banded, 0, g)]
+    junk = torch.randn(B, U1, generator=g).to(cuda)
+    cot = torch.randn(B, generator=g).to(cuda)
+    nll, alpha = alpha_forward(*args)
+    alphas, ll, _ = alpha_chain_forward(*args, 0, junk)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, alpha) and torch.equal(ll, -nll)
+    want = beta_backward(*args[:2], alpha, *args[2:], nll, cot)
+    got = beta_chain_backward(*args[:2], alpha, *args[2:], -nll, cot, 0, junk)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("B,L,N,width,lo,hi", [

@@ -1,10 +1,12 @@
 """The port's T-sharded lattice (ops/lattice_tshard.py, the plain versions
 of K6 and K7) against rnnt_tpu's, on the CPU.
 
-* ``alpha_chain_plain`` / ``beta_chain_plain`` on one shard with a nonzero
-  t0 and a carry in, against JAX's ``_alpha_chain_pallas`` /
-  ``_beta_chain_pallas`` in interpret mode on the same inputs, padded on
-  the JAX side as ``lattice_tshard.py:41-50,183-188`` pads them;
+* ``alpha_chain_plain`` / ``beta_chain_plain`` on one shard (the middle
+  one with a carry in, the first and the last with a carry in that must
+  be ignored, U1 = 1, a shard no t_len reaches), against JAX's
+  ``_alpha_chain_pallas`` / ``_beta_chain_pallas`` in interpret mode on
+  the same inputs, padded on the JAX side as
+  ``lattice_tshard.py:41-50,183-188`` pads them;
 * ``transducer_alpha_loss_tsharded`` on n = 2 and 4 gloo ranks against
   JAX's on ``make_mesh(8 // n, n)`` at the shapes of
   tests/test_lattice_tshard.py:32-61, and the data x model case of
@@ -52,31 +54,57 @@ def _jax_pad(x, B, Up, value):
     return jnp.pad(jnp.asarray(x), pad, constant_values=value)
 
 
-def test_chain_stages_match_jax_chain_kernels():
-    """Shard 1 of a 3-shard lattice (t0 = 128, T_CHUNK rows): t_lens end
-    inside it, at its last row, before it and after it; the carries in are
-    the stages' own on the neighbouring shards."""
-    B, U1, rows, t0 = 4, 9, 128, 128
-    lpb, lpl, _, u_lens = _problem(B, 3 * rows, U1, seed=4)
+# (U1, shard, t_lens, junk): shard s of a 3-shard lattice of 128-row shards
+# (T_CHUNK) held against JAX.  junk: the stage under test takes a random
+# carry_in that it must not read (K6 at t0 = 0 seeds row 0; K7 on the last
+# shard seeds every sample that reaches it), in place of the chain's.
+CHAIN_STAGE_CASES = {
+    "middle": (9, 1, [200, 256, 100, 384], False),
+    "first": (9, 0, [200, 256, 100, 384], True),
+    "last": (9, 2, [200, 256, 100, 384], True),
+    "u1-1": (1, 1, [200, 256, 100, 384], False),
+    "unreached": (9, 2, [200, 256, 100, 129], False),
+}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_STAGE_CASES))
+def test_chain_stages_match_jax_chain_kernels(case):
+    """One shard (T_CHUNK rows at t0 = 128 s) of a 3-shard lattice: t_lens
+    end inside it, at its last row, before it and after it ("middle"); the
+    first and last shards with a carry in that must be ignored; U1 = 1;
+    a shard that no sample's t_len reaches.  The carries in are the
+    stages' own on the neighbouring shards."""
+    U1, shard, t_lens, junk = CHAIN_STAGE_CASES[case]
+    B, rows = 4, 128
+    t0 = shard * rows
+    lpb, lpl, _, u_lens = _problem(B, 3 * rows, max(U1, 2), seed=4)
+    lpb, lpl, u_lens = lpb[..., :U1], lpl[..., :U1], np.minimum(u_lens, U1 - 1)
     lpl = np.where(np.arange(U1)[None, None, :] < u_lens[:, None, None], lpl, NEG)
     lpl = lpl.astype(np.float32)
-    t_lens = np.array([200, 256, 100, 384], np.int32)
+    t_lens = np.array(t_lens, np.int32)
     tt = [torch.from_numpy(x) for x in (lpb, lpl, t_lens, u_lens)]
-    d = tt[:2]  # float32, as the reference's kernels compute
-    carry0 = torch.full((B, U1), NEG)
-    _, ll0, carry_a = tlat.alpha_chain_plain(d[0][:, :t0], d[1][:, :t0], tt[2], tt[3], 0,
-                                             carry0)
-    alphas, ll1, carry_out = tlat.alpha_chain_plain(
-        d[0][:, t0:t0 + rows], d[1][:, t0:t0 + rows], tt[2], tt[3], t0, carry_a)
-    a2, ll2, _ = tlat.alpha_chain_plain(d[0][:, t0 + rows:], d[1][:, t0 + rows:], tt[2],
-                                        tt[3], t0 + rows, carry_out)
-    ll = ll0 + ll1 + ll2
+    blocks = [(s * rows, tt[0][:, s * rows:(s + 1) * rows], tt[1][:, s * rows:(s + 1) * rows])
+              for s in range(3)]  # float32, as the reference's kernels compute
+    neg = torch.full((B, U1), NEG)
+    carries_a, alphas, ll = [neg], [], 0.0
+    for s0, b, l in blocks:
+        a, part, carry = tlat.alpha_chain_plain(b, l, tt[2], tt[3], s0, carries_a[-1])
+        alphas.append(a)
+        ll = ll + part
+        carries_a.append(carry)
     g = torch.tensor([1.0, 0.5, 2.0, 1.5])
-    _, _, carry_b = tlat.beta_chain_plain(d[0][:, t0 + rows:], d[1][:, t0 + rows:], a2,
-                                          tt[2], tt[3], ll, g, t0 + rows, carry0)
-    glpb, glpl, beta_out = tlat.beta_chain_plain(
-        d[0][:, t0:t0 + rows], d[1][:, t0:t0 + rows], alphas, tt[2], tt[3], ll, g, t0,
-        carry_b)
+    carries_b = [neg]
+    for s in (2, 1):
+        s0, b, l = blocks[s]
+        carries_b.append(tlat.beta_chain_plain(b, l, alphas[s], tt[2], tt[3], ll, g, s0,
+                                               carries_b[-1])[2])
+    carry_a, carry_b = carries_a[shard], carries_b[2 - shard]
+    if junk:
+        rnd = torch.from_numpy(np.random.RandomState(7).randn(B, U1).astype(np.float32))
+        carry_a, carry_b = (rnd, carry_b) if shard == 0 else (carry_a, rnd)
+    _, b, l = blocks[shard]
+    alphas, ll1, carry_out = tlat.alpha_chain_plain(b, l, tt[2], tt[3], t0, carry_a)
+    glpb, glpl, beta_out = tlat.beta_chain_plain(b, l, alphas, tt[2], tt[3], ll, g, t0, carry_b)
 
     # JAX: the same shard, padded to (8, 128, 128) as the reference's chain pads.
     jb, jl = _pad_lattice(jnp.asarray(lpb[:, t0:t0 + rows]), jnp.asarray(lpl[:, t0:t0 + rows]))
@@ -108,7 +136,15 @@ def test_chain_stages_match_jax_chain_kernels():
     np.testing.assert_allclose(beta_out.numpy()[on], np.asarray(jbeta)[:B, :U1][on],
                                **CHAIN_TOL)
     assert (beta_out.numpy()[~on] == np.float32(NEG)).all()
-    assert ll1[2] == 0 and ll1[0] != 0  # sample 2 ends before the shard
+    # ll parts: the samples whose row t_len - 1 the shard holds, 0 for the others.
+    held = (t_lens - 1 >= t0) & (t_lens - 1 < t0 + rows)
+    assert (ll1.numpy()[~held] == 0).all() and (ll1.numpy()[held] != 0).all()
+    if junk:  # the carry in is not read
+        ref = (tlat.alpha_chain_plain(b, l, tt[2], tt[3], t0, neg) if shard == 0 else
+               tlat.beta_chain_plain(b, l, alphas, tt[2], tt[3], ll, g, t0, neg))
+        got = (alphas, ll1, carry_out) if shard == 0 else (glpb, glpl, beta_out)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
 
 
 def _jax_loss_and_grads(case, mesh, batch_axis=None):
