@@ -47,6 +47,23 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    ``rnnt_tpu_torch.cli.eval.main`` and ``rnnt_tpu_torch.train.loop.evaluate``;
    the kernels' launch counts are set to 0 before and read after; one
    batch's NLL is recomputed through the plain path and must agree;
+4a. serve phase (slice 10; no transducer kernel on this path, so K1-K7
+   must launch 0 times in it): StreamingSessions on full-width
+   ``base_convjs_fullcausal`` (batch norm; random weights from seed 0,
+   batch-norm statistics drawn in [0.5, 1.5]) fed 0.2 s chunks, against
+   offline featurize + encoder + greedy decode over the same encoder
+   frames: equal tokens at blank bias 2.5 (10 s) and at 0 (4 s, emitting
+   at the per-frame cap), the streamed encoder frames within
+   SERVE_STREAM_REL of the offline output's scale, the smallest top-2
+   logit margin printed; the pool at the load of the JAX package's serving
+   benchmark (``bench.py`` ``bench_serve``: full-width ``base_convjs``,
+   random weights from seed 0, 16 streams of 10 s, 0.2 s chunks, 2 warm-up
+   chunks): audio-s/s, step p50/p99, batched lanes, tokens, host syncs a
+   pump, streams 0-2 equal to dedicated sessions; ``python -m
+   rnnt_tpu_torch.cli.serve`` on a checkpoint of that model, 4 concurrent
+   HTTP clients of 2 s (one at 48 kHz), /text, the 503 past the slots,
+   DELETE, /stats (device steps >= 1, mean batched lanes > 1); a
+   ``{"serve": ...}`` line before the kernels line;
 5. train phase (slices 2 and 3): ``rnnt_tpu_torch.cli.train.main`` on
    full-width ``base_convjs`` with the flagship's own data settings
    (``augment: true, augment_device: full, staging: auto``: the corpus
@@ -82,15 +99,17 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    hop, the log-likelihood all-reduce and the flat gradient all-reduce
    over gloo (``--exchange``, one rank of that measurement);
 7. print the card's name and power limit, a ``{"multi_rank": ...}`` line,
-   a ``{"kernels": [...]}`` line (K1-K7), then, last, the
-   ``{"ok": true, ...}`` line.
+   a ``{"serve": ...}`` line, a ``{"kernels": [...]}`` line (K1-K7), then,
+   last, the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
 the path phase) and of three banded train steps without and with device
-augmentation (after the gradient check): device time by kernel and by
-group (K1-K7, cuDNN's convolutions, the rest) per batch or step, the
+augmentation (after the gradient check), and of five pool pumps at the
+serving load (in the serve phase): device time by kernel and by group
+(K1-K7, cuDNN's convolutions, the rest) per batch, step or pump, the
 card's busy and idle share, and ``DIR/eval_trace.json.gz``,
-``DIR/train_trace.json.gz`` and ``DIR/train_aug_trace.json.gz``.
+``DIR/train_trace.json.gz``, ``DIR/train_aug_trace.json.gz`` and
+``DIR/serve_pool_trace.json.gz``.
 ``--parent-lattice DIR`` builds another tree's K3, K4, K6 and K7 sources
 from DIR (``alpha_fwd.cu``, ``beta_bwd.cu``, ``alpha_chain.cu``,
 ``beta_chain.cu`` and their headers) with the same flags and times them in
@@ -1307,6 +1326,414 @@ def path_phase(workdir: Path, device, kernels, config="base_convjs",
                 n_params=n_params, cfg=cfg, model=model)
 
 
+# ------------------------------- serving -------------------------------
+
+# Streamed encoder frames against the offline encoder over the same frames,
+# fp32 with TF32 off: the largest absolute difference relative to the
+# offline output's largest magnitude.  The streamed convs see other lengths
+# than the offline ones, so cuDNN may pick other algorithms and sum in
+# another order; batch norm with frozen statistics is otherwise exact.
+SERVE_STREAM_REL = 1e-4
+
+
+def serve_cfg(workdir: Path, config: str, overrides=()):
+    from rnnt_tpu_torch.config.config import (
+        apply_overrides, build_featurizer_spec, build_model_spec, load_config,
+        resolve_config)
+    from rnnt_tpu_torch.data.dataset import synthetic_piece_table
+
+    vocab = workdir / "serve_vocab.json"
+    vocab.write_text(json.dumps(synthetic_piece_table()))
+    cfg = apply_overrides(load_config(resolve_config(config)),
+                          ["tokenizer.spm_model=''", *overrides, f"tokenizer.vocab_json={vocab}"])
+    return cfg, build_model_spec(cfg), build_featurizer_spec(cfg)
+
+
+def smallest_margin(model, enc: torch.Tensor, hyp: list, cap: int = 256) -> float:
+    """The smallest top-2 logit gap over every frame of ``enc`` (1, n, H)
+    against the predictor feature of every prefix of the hypothesis (the
+    first ``cap``): a lower bound on the margins the greedy decode saw."""
+    from rnnt_tpu_torch.decode.greedy import conv_window_features, decode_init_carry
+    from rnnt_tpu_torch.models.joint import joint_window
+
+    spec = model.spec
+    feat, (window, valid) = decode_init_carry(model.predictor, spec.predictor, spec.joint, 1,
+                                              enc.device)
+    best = math.inf
+    for k in range(min(len(hyp), cap) + 1):
+        top2 = joint_window(model.joint, enc, feat).topk(2, dim=-1).values
+        best = min(best, float((top2[..., 0] - top2[..., 1]).min()))
+        if k < len(hyp):
+            window = torch.cat([window[:, 1:], window.new_tensor([[hyp[k]]])], dim=1)
+            valid = (valid + 1).clamp(max=spec.predictor.receptive_field)
+            feat = conv_window_features(model.predictor, window, valid)
+    return best
+
+
+# Streamed against offline: (blank bias, seconds of audio, the session's
+# max_tokens_per_chunk).  At 2.5 the untrained model emits sparsely or not
+# at all; at 0 it emits at the per-frame cap of 10, and a chunk budget of
+# 128 (above the 100 that a chunk's 10 encoder frames can take) keeps the
+# budget from cutting a chunk short, so streamed must still equal offline
+# token for token.
+STREAM_CASES = ((2.5, 10.0, 64), (0.0, 4.0, 128))
+
+
+def stream_offline_check(workdir: Path, device, config="base_convjs_fullcausal",
+                         overrides=(), cases=STREAM_CASES, chunk_s=0.2) -> dict:
+    """StreamingSessions fed audio in ``chunk_s`` pieces against offline
+    featurize + encoder + greedy decode over the same encoder frames, on a
+    batch-norm model (random weights from seed 0, batch-norm statistics
+    drawn in [0.5, 1.5]) at each case's blank bias; and the streamed
+    encoder frames (FeatureStreamer + Encoder.streaming, the session's
+    chunking) against the offline encoder."""
+    from rnnt_tpu_torch.decode.greedy import greedy_decode
+    from rnnt_tpu_torch.decode.streaming import StreamingSession
+    from rnnt_tpu_torch.models.encoder import encoder_streaming_init_state
+    from rnnt_tpu_torch.models.rnnt import rnnt_init
+    from rnnt_tpu_torch.ops.stft import FeatureStreamer, make_featurizer
+
+    import numpy as np
+
+    _, spec, fspec = serve_cfg(workdir, config, overrides)
+    if spec.encoder.norm_type != "batch":
+        raise ValueError(f"{config}: streamed equals offline only with batch norm")
+    model = rnnt_init(spec, seed=0, device=device)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for buf in model.buffers():
+            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+    rng = np.random.RandomState(0)
+    n = int(max(c[1] for c in cases) * fspec.sample_rate)
+    wave = (rng.randn(n).astype(np.float32) * 0.2
+            + np.sin(2 * np.pi * 500 * np.arange(n) / fspec.sample_rate).astype(np.float32) * 0.3)
+    step = int(chunk_s * fspec.sample_rate)
+
+    streamer = FeatureStreamer(fspec, device)
+    states = encoder_streaming_init_state(1, spec.encoder, device=device)
+    frames = []
+    with torch.inference_mode():
+        for i in range(0, n, step):
+            feats = streamer.process(wave[i:i + step])
+            if feats is not None:
+                y, states = model.encoder.streaming(feats[None], states)
+                frames.append(y)
+        streamed = torch.cat(frames, dim=1)
+        enc = model.encoder(make_featurizer(fspec)(torch.from_numpy(wave).to(device))[None])
+        if not 0 < streamed.shape[1] <= enc.shape[1]:
+            raise AssertionError(f"{streamed.shape[1]} streamed, {enc.shape[1]} offline "
+                                 "encoder frames")
+        err = float((streamed - enc[:, :streamed.shape[1]]).abs().max())
+        scale = float(enc[:, :streamed.shape[1]].abs().max())
+    out = dict(config=config, chunk_s=chunk_s, encoder_frames=streamed.shape[1],
+               enc_max_abs_err=err, enc_scale=scale, cases=[])
+    log(f"serve/stream: {config}, {n / fspec.sample_rate:g} s in {chunk_s:g} s chunks: "
+        f"{streamed.shape[1]} encoder frames streamed vs offline, max abs err {err:.3e} "
+        f"(scale {scale:.3f})")
+    if not err <= SERVE_STREAM_REL * max(scale, 1.0):
+        raise AssertionError(f"streamed encoder frames {err:.3e} from offline "
+                             f"(limit {SERVE_STREAM_REL} x {max(scale, 1.0):.3f})")
+
+    for bias, seconds, budget in cases:
+        with torch.no_grad():
+            model.joint.out.b[spec.blank_idx] = bias
+        session = StreamingSession(model, fspec, max_tokens_per_chunk=budget)
+        m = int(seconds * fspec.sample_rate)
+        per_chunk = []
+        t0 = time.perf_counter()
+        for i in range(0, m, step):
+            per_chunk.append(len(session.feed(wave[i:i + step])[0]))
+        stream_s = time.perf_counter() - t0
+        n_enc = session.encoder_frames_emitted
+        with torch.inference_mode():
+            tokens, counts = greedy_decode(
+                model.predictor, model.joint, enc[:, :n_enc],
+                torch.tensor([n_enc], device=device), spec.predictor, spec.joint,
+                max_tokens=budget * len(per_chunk))
+            offline = tokens[0, : int(counts[0])].tolist()
+            margin = smallest_margin(model, enc[:, :n_enc], offline)
+        got = session.tokens()
+        case = dict(blank_bias=bias, seconds=seconds, max_tokens_per_chunk=budget,
+                    encoder_frames=n_enc, tokens=len(got), max_tokens_in_a_chunk=max(per_chunk),
+                    min_top2_margin=margin, session_audio_s_per_s=seconds / stream_s)
+        out["cases"].append(case)
+        log(f"serve/stream: blank bias {bias:g}, {seconds:g} s: {n_enc} encoder frames, "
+            f"{len(got)} tokens streamed ({max(per_chunk)} at most in a chunk of budget "
+            f"{budget}), {len(offline)} offline; smallest top-2 logit margin {margin:.4e}; "
+            f"session {seconds / stream_s:.2f} audio-s/s")
+        if got != offline:
+            raise AssertionError(f"streamed tokens {got[:40]} != offline {offline[:40]} "
+                                 f"(smallest margin {margin:.3e})")
+    return out
+
+
+def count_syncs(fn, device):
+    """Host-device synchronisations made by ``fn()`` (CUDA's sync debug
+    mode, one warning each); None off the card."""
+    import warnings
+
+    if torch.device(device).type != "cuda":
+        fn()
+        return None
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def pool_load_check(device, kernels, model, fspec, config="base_convjs", slots=16,
+                    seconds=10.0, chunk_s=0.2, check_streams=3,
+                    profile: Path | None = None) -> dict:
+    """The load of the JAX package's serving benchmark (bench.py
+    ``bench_serve``): ``slots`` streams of ``seconds`` of randn x 0.05 audio
+    (RandomState(0)) on one StreamingSessionPool of ``model``, ``chunk_s``
+    chunks, 2 warm-up chunks outside the timing.  Streams 0 to
+    ``check_streams`` - 1 against dedicated StreamingSessions fed the
+    pool's chunks."""
+    from rnnt_tpu_torch.decode.streaming import StreamingSession, StreamingSessionPool
+
+    import numpy as np
+
+    pool = StreamingSessionPool(model, fspec, slots=slots, chunk_seconds=chunk_s)
+    rng = np.random.RandomState(0)
+    audio = rng.randn(slots, int(seconds * fspec.sample_rate)).astype(np.float32) * 0.05
+    handles = [pool.open() for _ in range(slots)]
+    step = int(chunk_s * fspec.sample_rate)
+    n_chunks = audio.shape[1] // step
+
+    for c in range(2):
+        for i, h in enumerate(handles):
+            pool.feed(h, audio[i, c * step: (c + 1) * step])
+    if not pool.pump():
+        raise AssertionError("the warm-up pump did no work")
+    pool._pump_ms.clear()
+    pool._pump_lanes.clear()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for c in range(2, n_chunks):
+        for i, h in enumerate(handles):
+            pool.feed(h, audio[i, c * step: (c + 1) * step])
+        pool.pump()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    stats = pool.stats()
+    audio_seconds = slots * chunk_s * (n_chunks - 2)
+    steps = n_chunks - 1  # chunks the pool stepped: the last needs the next one's overlap
+
+    # Dedicated sessions fed exactly the pool's chunks (chunk + overlap,
+    # then one chunk at a time): instance norms see the same frames.
+    need = pool.chunk_samples + fspec.overlap
+    matches = []
+    for i in range(check_streams):
+        session = StreamingSession(model, fspec)
+        session.feed(audio[i, :need])
+        for j in range(1, steps):
+            session.feed(audio[i, need + (j - 1) * pool.chunk_samples:
+                                need + j * pool.chunk_samples])
+        got = pool.tokens(handles[i])
+        if session.tokens() != got:
+            raise AssertionError(f"pool stream {i}: {got[:40]} != its session's "
+                                 f"{session.tokens()[:40]}")
+        matches.append(len(got))
+
+    # Host syncs of one pump over every lane (fresh audio, after the checks).
+    more = np.random.RandomState(1).randn(slots, 8 * step).astype(np.float32) * 0.05
+    for i, h in enumerate(handles):
+        pool.feed(h, more[i, :step])
+    syncs = count_syncs(pool.pump, device)
+    out = dict(config=config, slots=slots, seconds=seconds, chunk_s=chunk_s,
+               audio_s_per_s=audio_seconds / dt, wall_s=dt, pumps=stats["device_steps"],
+               step_ms_p50=stats["step_ms_p50"], step_ms_p99=stats["step_ms_p99"],
+               mean_batched_lanes=stats["mean_batched_lanes"],
+               max_batched_lanes=stats["max_batched_lanes"],
+               tokens_emitted=stats["tokens_emitted"], syncs_per_pump=syncs,
+               kernel_launches=launches, checked_streams_tokens=matches)
+    log(f"serve/pool: {config}, {slots} streams x {seconds:g} s, {chunk_s:g} s chunks: "
+        f"{out['audio_s_per_s']:.2f} audio-s/s ({audio_seconds:.1f} s of audio in "
+        f"{dt:.3f} s), {stats['device_steps']} pumps, step p50 {stats['step_ms_p50']} ms, "
+        f"p99 {stats['step_ms_p99']} ms, mean batched lanes {stats['mean_batched_lanes']}, "
+        f"{stats['tokens_emitted']} tokens, {syncs} host syncs a pump; K1-K7 launches "
+        f"{launches}; streams 0-{check_streams - 1} equal their sessions "
+        f"({matches} tokens)")
+    if any(launches.values()):
+        raise AssertionError(f"a transducer kernel ran on the serving path: {launches}")
+    if profile is not None:
+        from torch.profiler import profile as torch_profile
+
+        pumps = 5
+        with torch_profile(activities=_activities(device)) as prof:
+            t0 = time.perf_counter()
+            for c in range(1, 1 + pumps):
+                for i, h in enumerate(handles):
+                    pool.feed(h, more[i, c * step: (c + 1) * step])
+                pool.pump()
+            wall = time.perf_counter() - t0
+        out["profile_idle_pct"] = report_trace(
+            prof, wall, f"{pumps} pool pumps ({slots} lanes, {chunk_s:g} s chunks)",
+            profile / "serve_pool_trace.json", per=pumps, per_what="pump",
+            kind=(torch.autograd.DeviceType.CUDA if torch.device(device).type == "cuda"
+                  else torch.autograd.DeviceType.CPU))
+    return out
+
+
+@contextlib.contextmanager
+def serve_process(workdir: Path, cfg, model, slots: int):
+    """``python -m rnnt_tpu_torch.cli.serve`` on a checkpoint of ``model``
+    (written by compat/jax_params.save_checkpoint) with ``slots`` slots on
+    a free port, on the card unless ``model`` lies on the CPU.  Yields
+    {"proc", "port"}; on leaving, SIGINT (then SIGKILL) stops it and its
+    output lands under "log"."""
+    from rnnt_tpu_torch.compat.jax_params import save_checkpoint
+
+    ckpt = save_checkpoint(workdir / "serve_ckpt", cfg, model)
+    srv = dict(port=free_port(), log="")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    cmd = [sys.executable, "-m", "rnnt_tpu_torch.cli.serve", str(ckpt),
+           "--port", str(srv["port"]), "--slots", str(slots)]
+    if next(model.parameters()).device.type != "cuda":  # the CLI's default is the card
+        cmd += ["--device", "cpu"]
+    srv["proc"] = proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO, env=env,
+        start_new_session=True)
+    srv["started"] = time.perf_counter()
+    try:
+        yield srv
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            srv["log"] = proc.communicate(timeout=20)[0]
+        except subprocess.TimeoutExpired:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            srv["log"] = proc.communicate()[0]
+
+
+def serve_request(srv: dict, method: str, path: str, data=None, headers=None):
+    import urllib.request
+
+    r = urllib.request.Request(f"http://127.0.0.1:{srv['port']}{path}", data=data,
+                               method=method, headers=headers or {})
+    return json.loads(urllib.request.urlopen(r, timeout=120).read())
+
+
+def wait_for_server(srv: dict, timeout=300) -> float:
+    """Seconds from the server's start until it first answers /stats."""
+    proc = srv["proc"]
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"cli.serve exited {proc.returncode}:\n"
+                                 + proc.communicate()[0][-4000:])
+        try:
+            serve_request(srv, "GET", "/stats")
+            return time.perf_counter() - srv["started"]
+        except OSError:
+            if time.perf_counter() - srv["started"] > timeout:
+                raise AssertionError(f"cli.serve did not answer in {timeout} s")
+            time.sleep(0.5)
+
+
+def server_check(srv: dict, clients=4, seconds=2.0, chunk_s=0.2, timeout=300) -> dict:
+    """Drive the server of ``serve_process`` with ``clients`` slots:
+    ``clients`` concurrent HTTP clients each stream ``seconds`` (client 0
+    at 48 kHz), /text, the 503 of a session past the slots, DELETE,
+    /stats."""
+    import threading
+    import urllib.error
+
+    import numpy as np
+
+    def req(method, path, data=None, headers=None):
+        return serve_request(srv, method, path, data, headers)
+
+    sids, errors, feeds_ms = [None] * clients, [], []
+
+    def client(ci):
+        try:
+            sid = req("POST", "/session")["session"]
+            sids[ci] = sid
+            rng = np.random.RandomState(100 + ci)
+            rate = 48000 if ci == 0 else 16000
+            step = int(chunk_s * rate)
+            last = None
+            for _ in range(int(seconds / chunk_s)):
+                pcm = (rng.randn(step) * 3000).astype(np.int16)
+                t0 = time.perf_counter()
+                last = req("POST", f"/feed/{sid}", pcm.tobytes(),
+                           headers={"X-Sample-Rate": str(rate)})
+                feeds_ms.append((time.perf_counter() - t0) * 1e3)
+                if set(last) != {"new_tokens", "text"}:
+                    raise AssertionError(f"feed answered {last}")
+            if req("GET", f"/text/{sid}")["text"] != last["text"]:
+                raise AssertionError("/text differs from the last feed's text")
+        except Exception as e:  # re-raised below
+            errors.append((ci, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    load_s = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors}")
+    try:
+        req("POST", "/session")
+        raise AssertionError(f"a session past {clients} slots was accepted")
+    except urllib.error.HTTPError as e:
+        if e.code != 503:
+            raise
+    texts = [req("DELETE", f"/session/{sid}")["text"] for sid in sids]
+    stats = req("GET", "/stats")
+    out = dict(clients=clients, seconds_each=seconds, load_s=load_s,
+               feed_ms_p50=statistics.median(feeds_ms), feed_ms_max=max(feeds_ms),
+               text_chars=[len(t) for t in texts], stats=stats)
+    log(f"serve/server: {clients} clients x {seconds:g} s (client 0 at 48 kHz) in "
+        f"{load_s:.2f} s, feed round trip p50 {out['feed_ms_p50']:.1f} ms (max "
+        f"{out['feed_ms_max']:.1f}); 503 past {clients} slots; /stats {stats}")
+    if stats["active_slots"] != 0 or stats["device_steps"] < 1:
+        raise AssertionError(f"/stats after the clients: {stats}")
+    if not stats["mean_batched_lanes"] > 1:
+        raise AssertionError(f"no pump batched two clients: {stats}")
+    return out
+
+
+def serve_phase(workdir: Path, device, kernels, profile: Path | None = None,
+                pool_config="base_convjs", pool_overrides=(), stream=None, pool=None,
+                server=None) -> dict:
+    """The serving path on ``device``: cli.serve is started on a checkpoint
+    of the pool's model (random weights from seed 0) and comes up while
+    streamed is held against offline; once it answers (idle from then on),
+    the pool runs at the serving benchmark's load, then the server's HTTP
+    clients.  ``stream``, ``pool`` and ``server`` override the three
+    checks' arguments (a smaller rehearsal on the CPU)."""
+    from rnnt_tpu_torch.models.rnnt import rnnt_init
+
+    t0 = time.perf_counter()
+    cfg, spec, fspec = serve_cfg(workdir, pool_config, pool_overrides)
+    model = rnnt_init(spec, seed=0, device=device)
+    res = {}
+    with serve_process(workdir, cfg, model, (server or {}).get("clients", 4)) as srv:
+        res["stream"] = stream_offline_check(workdir, device, **(stream or {}))
+        up_s = wait_for_server(srv)
+        log(f"serve/server: answering {up_s:.1f} s after its start (the stream check "
+            f"ran meanwhile); the pool is timed with it idle")
+        res["pool"] = pool_load_check(device, kernels, model, fspec, config=pool_config,
+                                      profile=profile, **(pool or {}))
+        res["server"] = server_check(srv, **(server or {})) | dict(up_s=up_s)
+    banner = next((ln for ln in srv["log"].splitlines() if ln.startswith("serving on")), "")
+    res["server"]["banner"] = banner
+    res["seconds"] = time.perf_counter() - t0
+    log(f"serve phase: {res['seconds']:.1f} s; the server printed: {banner or 'nothing'}")
+    return res
+
+
 TRAIN_OVERRIDES = ["data.dataset=synthetic",
                    "data.synthetic_seconds=10", "data.synthetic_size=96",
                    "training.global_batch_size=4", "training.pruned_warmup_steps=2",
@@ -2157,9 +2584,9 @@ def main() -> None:
                     help="also build joint_fwd.cu of another tree from DIR (with its "
                          "headers; repeatable) and time it in turns with this tree's K1")
     ap.add_argument("--profile", metavar="DIR", type=Path, default=None,
-                    help="also trace two eval batches and three train steps with "
-                         "torch.profiler, print device time by kernel and the idle "
-                         "share, and write DIR/{eval,train}_trace.json.gz")
+                    help="also trace two eval batches, five serving pumps and three "
+                         "train steps with torch.profiler, print device time by kernel "
+                         "and the idle share, and write DIR/*_trace.json.gz")
     args = ap.parse_args()
     if args.exchange is not None:
         sys.path.insert(0, str(REPO))
@@ -2223,6 +2650,7 @@ def main() -> None:
         if args.profile is not None:
             profile_phase(path["cfg"], path["model"], device, args.profile)
         del path["model"]
+        serve = serve_phase(Path(tmp), device, kernels + [K6, K7], args.profile)
         train = train_phase(Path(tmp), device, kernels)
         grad_phase(device, kernels, train)
         ranks = multi_rank_phase(Path(tmp), device, train)
@@ -2292,6 +2720,7 @@ def main() -> None:
     log(f"total {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"multi_rank": multi}))
+    print(json.dumps({"serve": serve}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

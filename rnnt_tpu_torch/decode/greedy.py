@@ -14,6 +14,10 @@ emissions per frame; blank advances time.
   frame or skips the window — the same tokens as W = 1, because the
   predictor state does not change across a run of blanks.
 * ``torch.argmax`` takes the first maximum, as ``jnp.argmax`` does.
+* ``greedy_decode_incremental`` takes and returns the cross-chunk carry
+  (the predictor feature and its token window) that a streaming session
+  keeps between chunks; ``greedy_decode`` is the same loop from the fresh
+  carry of ``decode_init_carry``.
 
 The LSTM predictor's stepper is not ported yet.
 """
@@ -47,17 +51,47 @@ def conv_window_features(pred: ConvPredictor, window: torch.Tensor,
     return pred.output_ln(pred.linear(x[:, -1, :]))
 
 
-def greedy_decode(predictor: ConvPredictor, joint: Joint, audio: torch.Tensor,
-                  t_lens: torch.Tensor, predictor_spec, joint_spec: JointSpec,
-                  *, max_tokens: int = 200, max_symbols_per_step: int = 10,
-                  frames_per_step: int = 8):
-    """audio (B, T, H) encoder output, t_lens (B,) -> (tokens (B, max_tokens)
-    int32, counts (B,) int32); tokens[b, :counts[b]] is the hypothesis."""
+def decode_init_carry(predictor: ConvPredictor, predictor_spec,
+                      joint_spec: JointSpec, batch: int, device="cpu"):
+    """The carry a stream starts from: (pred_feat (B, D), (window (B, R),
+    valid (B,))) — the blank-only window's feature and its state."""
     if not isinstance(predictor_spec, ConvPredictorSpec):
         raise NotImplementedError(
             "greedy decode with an LSTM predictor is not ported yet")
+    R = predictor_spec.receptive_field
+    window = torch.full((batch, R), joint_spec.blank_idx, dtype=torch.long,
+                        device=device)
+    valid = torch.ones((batch,), dtype=torch.long, device=device)
+    return conv_window_features(predictor, window, valid), (window, valid)
+
+
+def greedy_decode(predictor: ConvPredictor, joint: Joint, audio: torch.Tensor,
+                  t_lens: torch.Tensor, predictor_spec, joint_spec: JointSpec,
+                  *, max_tokens: int = 200, max_symbols_per_step: int = 10,
+                  carry=None, frames_per_step: int = 8):
+    """audio (B, T, H) encoder output, t_lens (B,) -> (tokens (B, max_tokens)
+    int32, counts (B,) int32); tokens[b, :counts[b]] is the hypothesis."""
+    tokens, counts, _ = greedy_decode_incremental(
+        predictor, joint, audio, t_lens, predictor_spec, joint_spec,
+        max_tokens=max_tokens, max_symbols_per_step=max_symbols_per_step,
+        carry=carry, frames_per_step=frames_per_step)
+    return tokens, counts
+
+
+def greedy_decode_incremental(predictor: ConvPredictor, joint: Joint,
+                              audio: torch.Tensor, t_lens: torch.Tensor,
+                              predictor_spec, joint_spec: JointSpec, *,
+                              max_tokens: int = 200,
+                              max_symbols_per_step: int = 10, carry=None,
+                              frames_per_step: int = 8):
+    """``greedy_decode`` that starts from ``carry`` (``decode_init_carry``
+    when None) and also returns the carry after this chunk, so a stream
+    continues where the chunk left off: (tokens, counts, carry)."""
     B, T, _ = audio.shape
     dev = audio.device
+    if carry is None:
+        carry = decode_init_carry(predictor, predictor_spec, joint_spec, B, dev)
+    feat, (window, valid) = carry
     W = max(1, min(frames_per_step, T))
     blank = joint_spec.blank_idx
     R = predictor_spec.receptive_field
@@ -65,9 +99,6 @@ def greedy_decode(predictor: ConvPredictor, joint: Joint, audio: torch.Tensor,
     offs = torch.arange(W, device=dev)
     t_lens = t_lens.long()
 
-    window = torch.full((B, R), blank, dtype=torch.long, device=dev)
-    valid = torch.ones((B,), dtype=torch.long, device=dev)
-    feat = conv_window_features(predictor, window, valid)
     t = torch.zeros((B,), dtype=torch.long, device=dev)
     n = torch.zeros_like(t)
     emits = torch.zeros_like(t)
@@ -105,4 +136,4 @@ def greedy_decode(predictor: ConvPredictor, joint: Joint, audio: torch.Tensor,
         window = torch.where(emit[:, None], new_window, window)
         valid = torch.where(emit, new_valid, valid)
 
-    return tokens, n.to(torch.int32)
+    return tokens, n.to(torch.int32), (feat, (window, valid))

@@ -1,4 +1,4 @@
-"""Jasper-style causal convolutional audio encoder (batch mode, eval).
+"""Jasper-style causal convolutional audio encoder.
 
 Port of ``rnnt_tpu/models/encoder.py``: a stride-2 prologue conv, Jasper
 blocks (causal convs + norm + exact-erf GELU, a 1x1-conv residual added
@@ -15,6 +15,12 @@ batch statistics, putting their new running statistics into ``new_state``.
 Module attribute names mirror the JAX params pytree, so
 ``compat/jax_params.py`` maps ``encoder/blocks/0/convs/1/w`` to
 ``encoder.blocks.0.convs.1.w`` one to one.
+
+``Encoder.streaming`` runs a chunk with one carry state per causal conv
+(``encoder_streaming_init_state``), in inference mode: norms read their
+running statistics.  Instance norms take their statistics over the chunk,
+so only batch norm makes the streamed frames equal the batch-mode ones;
+the JAX package makes the same trade.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from rnnt_tpu_torch.ops.causal_conv import (
     ConvSpec,
     Linear,
     causal_conv_out_len,
+    streaming_init_state,
 )
 from rnnt_tpu_torch.ops.norm import Norm
 from rnnt_tpu_torch.utils import batch_draw
@@ -91,6 +98,13 @@ def encoder_out_len(in_len, spec: EncoderSpec):
     for cs in spec.conv_specs():
         out = causal_conv_out_len(out, cs)
     return out
+
+
+def encoder_streaming_init_state(batch_size: int, spec: EncoderSpec,
+                                 dtype=torch.float32, device="cpu") -> tuple:
+    """Zero carry states, one per causal conv, (B, (k-1)d - s + 1, Cin)."""
+    return tuple(streaming_init_state(batch_size, cs, dtype, device)
+                 for cs in spec.conv_specs())
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -166,3 +180,41 @@ class Encoder(nn.Module):
         x = _gelu(self.epilogue["norm"](self.epilogue["conv"](x), training,
                                         new_state))
         return self.out(x)
+
+    def streaming(self, x: torch.Tensor, conv_states: tuple):
+        """One chunk x (B, T, input_features) -> (y (B, T', output_features),
+        new_conv_states).  A chunk that leaves no frame after some conv
+        returns no frame, and the later convs keep their carries."""
+        states = list(conv_states)
+        k = 0
+
+        def conv(c, xx):
+            nonlocal k
+            y, states[k] = c.streaming(xx, states[k])
+            k += 1
+            return y
+
+        def no_frame():
+            return (x.new_zeros((x.shape[0], 0, self.spec.output_features)),
+                    tuple(states))
+
+        x = conv(self.prologue["conv"], x)
+        if x.shape[1] == 0:
+            return no_frame()
+        x = _gelu(self.prologue["norm"](x))
+        for block in self.blocks:
+            residual = block.residual_norm(block.residual_conv(x))
+            last = len(block.convs) - 1
+            for i, (c, norm) in enumerate(zip(block.convs, block.norms)):
+                x = conv(c, x)
+                if x.shape[1] == 0:
+                    return no_frame()
+                x = norm(x)
+                if i == last:
+                    x = x + residual[:, : x.shape[1], :]
+                x = _gelu(x)
+        x = conv(self.epilogue["conv"], x)
+        if x.shape[1] == 0:
+            return no_frame()
+        x = _gelu(self.epilogue["norm"](x))
+        return self.out(x), tuple(states)

@@ -1,6 +1,10 @@
 """Causal 1-D convolution and the 1x1 (per-frame linear) convolution.
 
-Port of ``rnnt_tpu/ops/causal_conv.py`` (batch mode).  Public functions
+Port of ``rnnt_tpu/ops/causal_conv.py``, batch mode and streaming: a
+streaming step concatenates the carry state ((k-1)d - s + 1 frames at
+start) with the chunk, convolves it unpadded and keeps the frames it did
+not consume as the next carry, whose length changes when a chunk's
+length is not a multiple of the stride.  Public functions
 keep the JAX layout — activations (B, T, C), conv weights (K, Cin, Cout),
 linear weights (in, out) — and transpose internally to torch's (B, C, T)
 and (Cout, Cin, K).  A left pad of ``(k-1)d - s + 1 - additional_context``
@@ -50,6 +54,11 @@ class ConvSpec(NamedTuple):
         return self
 
 
+def causal_conv_state_len(spec: ConvSpec) -> int:
+    """Length of the streaming carry state: (k-1)*d - s + 1 frames."""
+    return spec.padding
+
+
 def causal_conv_out_len(in_len, spec: ConvSpec):
     """Output length for an input length; ints or integer tensors (floor
     division, as in the JAX package)."""
@@ -71,6 +80,26 @@ def causal_conv_apply(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     """Batch-mode forward, zero left pad only.  x: (B, T, Cin)."""
     x = F.pad(x, (0, 0, spec.left_padding, 0))
     return conv1d_valid(w, b, x, spec.stride, spec.dilation)
+
+
+def causal_conv_streaming(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                          state: torch.Tensor, spec: ConvSpec):
+    """Streaming forward: x (B, chunk, Cin), state (B, S, Cin) ->
+    (y (B, T', Cout), new_state).  A step too short for one output frame
+    returns no frame and keeps everything as the carry."""
+    full = torch.cat([state, x], dim=1)
+    y_len = (full.shape[1] - spec.dilation * (spec.kernel_size - 1) - 1) // spec.stride + 1
+    if y_len <= 0:
+        return full.new_zeros((full.shape[0], 0, spec.out_channels)), full
+    y = conv1d_valid(w, b, full, spec.stride, spec.dilation)
+    return y, full[:, y_len * spec.stride:]
+
+
+def streaming_init_state(batch_size: int, spec: ConvSpec, dtype=torch.float32,
+                         device="cpu") -> torch.Tensor:
+    """Zero carry state (B, (k-1)*d - s + 1, Cin)."""
+    return torch.zeros((batch_size, causal_conv_state_len(spec), spec.in_channels),
+                       dtype=dtype, device=device)
 
 
 def linear_apply(w: torch.Tensor, b: torch.Tensor | None,
@@ -101,6 +130,9 @@ class CausalConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return causal_conv_apply(self.w, self.b, x, self.spec)
+
+    def streaming(self, x: torch.Tensor, state: torch.Tensor):
+        return causal_conv_streaming(self.w, self.b, x, state, self.spec)
 
 
 class Linear(nn.Module):

@@ -1,11 +1,13 @@
-"""Spectrogram featurizers over raw waveforms.
+"""Spectrogram featurizers over raw waveforms, and the streaming featurizer.
 
-Port of ``rnnt_tpu/ops/stft.py`` (batch mode): a 201-bin power STFT
+Port of ``rnnt_tpu/ops/stft.py``: a 201-bin power STFT
 (n_fft = win = 400, hop 160, periodic Hann, center=False, onesided) as ONE
 strided convolution with a (2*bins, 1, n_fft) windowed-DFT basis, an
 optional mel filterbank, and the ``piecewise``, ``old_piecewise`` and
 ``log`` compressions with scalar or per-channel normalization.  Output is
-(B, frames, bins) float32.
+(B, frames, bins) float32.  ``FeatureStreamer`` featurizes audio fed in
+pieces of any length: it keeps ``n_fft - hop`` samples of overlap, so the
+streamed frames are the full utterance's frames.
 
 On a CUDA card the float32 conv goes through cuDNN, which runs TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is False; a card-side comparison with
@@ -44,6 +46,11 @@ class FeaturizerSpec:
     @property
     def num_bins(self) -> int:
         return self.num_mels if self.num_mels else self.n_fft // 2 + 1
+
+    @property
+    def overlap(self) -> int:
+        """Samples of history a streaming chunk must keep: frame - hop."""
+        return self.n_fft - self.hop_length
 
     def num_frames(self, num_samples: int) -> int:
         if self.center:
@@ -158,3 +165,36 @@ def make_featurizer(spec: FeaturizerSpec):
         return feats[0] if squeeze else feats
 
     return featurize
+
+
+class FeatureStreamer:
+    """Streaming featurizer: a host buffer of samples, from which each
+    ``process`` featurizes the whole frames it holds plus the ``overlap``
+    samples the next frame shares with them, so the concatenated frames
+    equal the full utterance's.  The featurizer runs on ``device``."""
+
+    def __init__(self, spec: FeaturizerSpec, device="cpu"):
+        if spec.center:
+            raise ValueError(
+                "centered featurizers are not streamable; use a "
+                "center=False (TFJS-variant) spec for streaming")
+        self.spec = spec
+        self.device = torch.device(device)
+        self.featurize = make_featurizer(spec)
+        self.reset()
+
+    def reset(self):
+        self._buffer = np.zeros((0,), dtype=np.float32)
+
+    def process(self, samples: np.ndarray) -> torch.Tensor | None:
+        """Feed samples; returns the new frames (frames, bins) on the
+        streamer's device, or None while no whole frame is buffered."""
+        self._buffer = np.concatenate([self._buffer, np.asarray(samples, np.float32)])
+        n = self.spec.num_frames(len(self._buffer))
+        if n == 0:
+            return None
+        consumed = n * self.spec.hop_length
+        chunk = self._buffer[: consumed + self.spec.overlap]
+        self._buffer = self._buffer[consumed:]
+        with torch.inference_mode():
+            return self.featurize(torch.from_numpy(chunk).to(self.device))

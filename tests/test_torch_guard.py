@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from rnnt_tpu_torch.cli import eval as cli_eval
+from rnnt_tpu_torch.cli import infer as cli_infer
+from rnnt_tpu_torch.cli import serve as cli_serve
 from rnnt_tpu_torch.cli import train as cli_train
 from rnnt_tpu_torch.config.config import apply_overrides, load_config, resolve_config
 from rnnt_tpu_torch.train.loop import evaluate, train
@@ -52,6 +54,20 @@ def test_resolve_device_refuses_missing_cuda(no_cuda):
 def test_cli_eval_refuses_missing_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_eval.main([str(tmp_path)])
+
+
+def test_cli_serve_refuses_missing_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_serve.main([str(tmp_path), "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_serve.main([str(tmp_path), "--port", "0", "--device", "cuda"])
+
+
+def test_cli_infer_refuses_missing_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_infer.main([str(tmp_path), str(tmp_path / "a.wav")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_infer.main([str(tmp_path), str(tmp_path / "a.wav"), "--streaming"])
 
 
 def test_evaluate_refuses_missing_cuda(no_cuda, tmp_path):

@@ -53,6 +53,9 @@ def fake_k1(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
     monkeypatch.setattr(kernels, "ptr", lambda t: t)
     monkeypatch.setattr(ttp.K1, "_fn", fake_fn)
+    # The fake launches count; the counter is restored after the test so
+    # that no later test in the process sees them.
+    monkeypatch.setattr(ttp.K1, "launches", ttp.K1.launches)
     return calls
 
 

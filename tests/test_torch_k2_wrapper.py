@@ -49,6 +49,9 @@ def fake_k2(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
     monkeypatch.setattr(kernels, "ptr", lambda t: t)
     monkeypatch.setattr(ttp.K2, "_fn", fake_fn)
+    # The fake launches count; the counter is restored after the test so
+    # that no later test in the process sees them.
+    monkeypatch.setattr(ttp.K2, "launches", ttp.K2.launches)
     return calls
 
 
