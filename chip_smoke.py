@@ -52,8 +52,9 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    ``base_convjs_fullcausal`` (batch norm; random weights from seed 0,
    batch-norm statistics drawn in [0.5, 1.5]) fed 0.2 s chunks, against
    offline featurize + encoder + greedy decode over the same encoder
-   frames: equal tokens at blank bias 2.5 (10 s) and at 0 (4 s, emitting
-   at the per-frame cap), the streamed encoder frames within
+   frames: equal tokens at blank bias 0.25 (10 s, about a token a frame)
+   and at 0 (4 s, emitting at the per-frame cap), a case with no token a
+   failure, the streamed encoder frames within
    SERVE_STREAM_REL of the offline output's scale, the smallest top-2
    logit margin printed; the pool at the load of the JAX package's serving
    benchmark (``bench.py`` ``bench_serve``: full-width ``base_convjs``,
@@ -64,6 +65,29 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    HTTP clients of 2 s (one at 48 kHz), /text, the 503 past the slots,
    DELETE, /stats (device steps >= 1, mean batched lanes > 1); a
    ``{"serve": ...}`` line before the kernels line;
+4b. decode phase (slice 11) on full-width ``base_convjs`` (random weights
+   from seed 0, the bf16 eval forward): beam 8 with the defaults at
+   ``bench.py`` ``bench_beam``'s load (16 synthetic 10 s utterances,
+   ``max_tokens`` 200): audio-s/s, ms a call, expansion rounds, host syncs
+   and kernel launches a call, counts <= 200, every returned score >= the
+   width-1 raw run's (the greedy guard); at blank bias DECODE_BIAS on 4
+   utterances, width 1 (raw ranking, no merge, no guard) equal to
+   greedy_decode and width 4 with window 8 equal to window 1, tokens
+   emitted but fewer than the buffer, the smallest top-2 margin printed;
+   ``beam_decode_nbest`` (width 8 + greedy: 9 candidates) and
+   ``marginal_rescore`` on 4 utterances, K1-K7's counts set to 0 before the
+   rescore: K3 launched and no other kernel, the NLLs within RESCORE_RTOL
+   of the plain alpha on the same log-probs, the picks the plain minimum
+   within RESCORE_RTOL, the lattice's shape, the rescore's ms and K3's
+   device ms at that shape beside its bounds;
+4c. LSTM phase (slice 11): ``cli.train`` 2 steps on full-width
+   ``base_sp_lstm`` (80-mel, 2 x 1024 layer-normed LSTM; its data
+   settings, synthetic 10 s utterances, batch 4): K1-K4 in every step,
+   K5-K7 never, loss and gradient norm finite; ``cli.eval`` on its
+   checkpoint greedy and ``--beam 4 --rescore``, finite WERs; streamed
+   against offline on ``base_sp_lstm`` with batch norm and an uncentred
+   featurizer (LSTM_STREAM_OVERRIDES) at blank bias LSTM_STREAM_BIAS, as
+   in 4a; a ``{"decode": ...}`` line (4b and 4c) before the kernels line;
 5. train phase (slices 2 and 3): ``rnnt_tpu_torch.cli.train.main`` on
    full-width ``base_convjs`` with the flagship's own data settings
    (``augment: true, augment_device: full, staging: auto``: the corpus
@@ -99,8 +123,9 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    hop, the log-likelihood all-reduce and the flat gradient all-reduce
    over gloo (``--exchange``, one rank of that measurement);
 7. print the card's name and power limit, a ``{"multi_rank": ...}`` line,
-   a ``{"serve": ...}`` line, a ``{"kernels": [...]}`` line (K1-K7), then,
-   last, the ``{"ok": true, ...}`` line.
+   a ``{"serve": ...}`` line, a ``{"decode": ...}`` line, a
+   ``{"kernels": [...]}`` line (K1-K7; K3's entry with its rescoring
+   case), then, last, the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
 the path phase) and of three banded train steps without and with device
@@ -1353,30 +1378,30 @@ def smallest_margin(model, enc: torch.Tensor, hyp: list, cap: int = 256) -> floa
     """The smallest top-2 logit gap over every frame of ``enc`` (1, n, H)
     against the predictor feature of every prefix of the hypothesis (the
     first ``cap``): a lower bound on the margins the greedy decode saw."""
-    from rnnt_tpu_torch.decode.greedy import conv_window_features, decode_init_carry
+    from rnnt_tpu_torch.decode.greedy import make_predictor_stepper
     from rnnt_tpu_torch.models.joint import joint_window
 
     spec = model.spec
-    feat, (window, valid) = decode_init_carry(model.predictor, spec.predictor, spec.joint, 1,
-                                              enc.device)
+    feat, state, step = make_predictor_stepper(model.predictor, spec.predictor,
+                                               spec.blank_idx, 1, enc.device)
     best = math.inf
     for k in range(min(len(hyp), cap) + 1):
         top2 = joint_window(model.joint, enc, feat).topk(2, dim=-1).values
         best = min(best, float((top2[..., 0] - top2[..., 1]).min()))
         if k < len(hyp):
-            window = torch.cat([window[:, 1:], window.new_tensor([[hyp[k]]])], dim=1)
-            valid = (valid + 1).clamp(max=spec.predictor.receptive_field)
-            feat = conv_window_features(model.predictor, window, valid)
+            feat, state = step(state, torch.tensor([hyp[k]], device=enc.device))
     return best
 
 
 # Streamed against offline: (blank bias, seconds of audio, the session's
-# max_tokens_per_chunk).  At 2.5 the untrained model emits sparsely or not
-# at all; at 0 it emits at the per-frame cap of 10, and a chunk budget of
-# 128 (above the 100 that a chunk's 10 encoder frames can take) keeps the
-# budget from cutting a chunk short, so streamed must still equal offline
-# token for token.
-STREAM_CASES = ((2.5, 10.0, 64), (0.0, 4.0, 128))
+# max_tokens_per_chunk).  At 0.25 the untrained model emits about one token
+# a frame (521 in 10 s on an H100, up to 64 in a chunk; 2 at 0.5, none from
+# 1.0 up: scripts/blank_bias_sweep.py, PERF.md §6); at 0 it emits at the
+# per-frame cap of 10.  A chunk budget of 128 (above the 100 that a chunk's
+# 10 encoder frames can take) keeps the budget from cutting a chunk short,
+# so streamed must equal offline token for token.  A case that decodes no
+# token fails.
+STREAM_CASES = ((0.25, 10.0, 128), (0.0, 4.0, 128))
 
 
 def stream_offline_check(workdir: Path, device, config="base_convjs_fullcausal",
@@ -1464,6 +1489,9 @@ def stream_offline_check(workdir: Path, device, config="base_convjs_fullcausal",
         if got != offline:
             raise AssertionError(f"streamed tokens {got[:40]} != offline {offline[:40]} "
                                  f"(smallest margin {margin:.3e})")
+        if not got:
+            raise AssertionError(f"{config} at blank bias {bias:g}: 0 tokens streamed and "
+                                 "offline, so their equality would show nothing")
     return out
 
 
@@ -1841,6 +1869,354 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
                        for k in kernels} for impl, r in runs.items()}
     return dict(runs=runs, launches=total, per_step=per_step,
                 overrides=list(overrides), vocab=vocab, config=config)
+
+
+# ------------------------- decode: beam and rescoring -------------------------
+
+# The rescoring NLLs (K3 on the B x C candidate lattices) against the plain
+# alpha recursion on the same log-probs, relative, as PATH_NLL_RTOL holds
+# the eval path's NLL: float32 log-sum-exps of O(10^3) in another order
+# (1.7e-6 read on an H100, PERF.md §6).
+RESCORE_RTOL = 1e-3
+# Scores of the beam's greedy guard against a separate K = 1 raw run: the
+# same computation, so equal up to float32 rounding of the comparison.
+GUARD_RTOL = 1e-5
+# Blank biases at which the untrained full-width models (seed 0) emit some
+# tokens, but fewer than the buffer holds, read off
+# scripts/blank_bias_sweep.py on an H100 (PERF.md §6): base_convjs at
+# bench_beam's load, 4 utterances, 49-94 of 200 at 1.0 (200 at 0.5, 0-23 at
+# 1.25); base_sp_lstm (batch norm, uncentred), 10 s, 8 tokens at 1.0.
+DECODE_BIAS = 1.0
+LSTM_STREAM_BIAS = 1.0
+
+
+def kernel_stats(fn, device):
+    """(kernels launched, device busy ms) in one call of ``fn``
+    (torch.profiler); (None, None) off the card."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return None, None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), busy_us(kernels) / 1e3
+
+
+def bench_beam_audio(fspec, device, batch: int, seconds: float):
+    """``bench.py`` ``bench_beam``'s batch (``_synthetic_batch``): ``batch``
+    utterances of randn x 0.1 (RandomState(0)), ``seconds`` rounded up to
+    whole frames, full lens."""
+    import numpy as np
+
+    samples = fspec.samples_for_frames(fspec.num_frames(int(seconds * fspec.sample_rate)))
+    wave = np.random.RandomState(0).randn(batch, samples).astype(np.float32) * 0.1
+    return {"audio": torch.from_numpy(wave).to(device),
+            "audio_lens": torch.full((batch,), samples, dtype=torch.int32, device=device)}
+
+
+@contextlib.contextmanager
+def blank_bias(model, bias: float):
+    """The joint's blank output bias set to ``bias`` inside the block."""
+    b = model.joint.out.b
+    old = float(b[model.spec.blank_idx])
+    with torch.no_grad():
+        b[model.spec.blank_idx] = bias
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            b[model.spec.blank_idx] = old
+
+
+def top_k_tie_check(device, rows: int, k: int, vocab: int) -> int:
+    """decode/beam.py ``top_k`` on the device against numpy's stable
+    argsort on a (rows, k + k * vocab) pool of a few distinct values
+    (NEG among them), where nearly every entry ties: the same indices, the
+    lower first among equals (``lax.top_k``'s rule).  Returns the ties
+    among the picked entries."""
+    import numpy as np
+
+    from rnnt_tpu_torch.decode.beam import NEG, top_k
+
+    rng = np.random.RandomState(3)
+    levels = np.array([NEG, -7.5, -3.25, -3.0, 0.0], np.float32)
+    pool = levels[rng.randint(0, len(levels), (rows, k + k * vocab))]
+    want = np.argsort(-pool, axis=1, kind="stable")[:, :k]
+    _, got = top_k(torch.from_numpy(pool).to(device), k)
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("top_k on the device broke a tie out of index order")
+    picked = np.take_along_axis(pool, want, axis=1)
+    return int((picked[:, 1:] == picked[:, :-1]).sum())
+
+
+def decode_phase(workdir: Path, device, kernels, lse_ns: float, config="base_convjs",
+                 batch=16, seconds=10.0, max_tokens=200, beam=8, check_utts=4,
+                 rescore_utts=4, bias=DECODE_BIAS, reps=2) -> dict:
+    """Beam search and N-best rescoring on the full-width ``config`` (random
+    weights from seed 0, the eval forward at the config's precision):
+
+    * beam ``beam`` with the defaults at ``bench_beam``'s load (``batch``
+      utterances of ``seconds``, ``max_tokens``): audio-s/s and wall ms a
+      call (``reps`` calls after a warm-up one), expansion rounds and window
+      iterations, host syncs (CUDA's sync debug mode) and kernel launches
+      a call; counts <= max_tokens and every returned path score >= the
+      width-1 raw run's (the greedy guard);
+    * at blank bias ``bias``, on ``check_utts`` utterances: width 1 with raw
+      ranking, no merge and no guard equal to greedy_decode, width 4 with
+      ``frames_per_step`` 8 equal to 1, tokens emitted but fewer than the
+      buffer; the smallest top-2 margin along utterance 0's greedy path;
+    * at that bias, ``beam_decode_nbest`` (``beam`` + the greedy chain)
+      and ``marginal_rescore`` on ``rescore_utts`` utterances, the kernels'
+      counts set to 0 before the rescore and read after: K3 launched, no
+      other kernel; the NLLs within RESCORE_RTOL of the plain alpha on the
+      same log-probs (finite entries; the same entries finite); the pick's
+      plain NLL the plain minimum within RESCORE_RTOL; the lattice's shape,
+      the rescore's wall ms, K3's device ms at that shape beside its bytes
+      and critical-path bounds (diagonals x ``lse_ns``)."""
+    from rnnt_tpu_torch.decode.beam import beam_decode, beam_decode_nbest, beam_search_final
+    from rnnt_tpu_torch.decode.greedy import greedy_decode
+    from rnnt_tpu_torch.decode.rescore import marginal_rescore, rescore_lattice_inputs
+    from rnnt_tpu_torch.models.rnnt import rnnt_init
+    from rnnt_tpu_torch.ops.lattice_pallas import alpha_forward
+    from rnnt_tpu_torch.ops.transducer import joint_lattice_log_probs, transducer_alpha_loss
+    from rnnt_tpu_torch.train.step import make_eval_forward
+
+    t_phase = time.perf_counter()
+    cfg, spec, fspec = serve_cfg(workdir, config)
+    ties = top_k_tie_check(device, batch, beam, spec.joint.num_classes)
+    model = rnnt_init(spec, seed=0, device=device)
+    dec, specs = (model.predictor, model.joint), (spec.predictor, spec.joint)
+    blank = spec.blank_idx
+    out = dict(config=config, batch=batch, seconds=seconds, beam=beam, max_tokens=max_tokens,
+               top_k_ties=ties)
+    with torch.inference_mode():
+        audio, t_lens = make_eval_forward(spec, fspec, cfg.training.precision)(
+            model, bench_beam_audio(fspec, device, batch, seconds))
+
+        # ---- beam at bench_beam's load, the defaults ----
+        def beam_call():
+            return beam_decode(*dec, audio, t_lens, *specs, beam_width=beam,
+                               max_tokens=max_tokens)
+
+        tokens, counts, scores = beam_call()  # warm-up
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tokens, counts, scores = beam_call()
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        syncs = count_syncs(beam_call, device)
+        launches, busy_ms = kernel_stats(beam_call, device)
+        search = beam_search_final(*dec, audio, t_lens, *specs, beam_width=beam,
+                                   max_tokens=max_tokens)
+        guard = beam_search_final(*dec, audio, t_lens, *specs, beam_width=1,
+                                  max_tokens=max_tokens, merge_paths=False,
+                                  search_norm=False)
+        _, raw_n, raw_scores = beam_decode(*dec, audio, t_lens, *specs, beam_width=1,
+                                           max_tokens=max_tokens, length_norm=False,
+                                           merge_paths=False, search_norm=False,
+                                           greedy_guard=False)
+    out["beam"] = dict(
+        audio_s_per_s=batch * seconds / (wall_ms / 1e3), wall_ms=wall_ms,
+        rounds=search.rounds + guard.rounds, iterations=search.iterations + guard.iterations,
+        loop_syncs=search.syncs + guard.syncs, host_syncs=syncs, kernel_launches=launches,
+        device_busy_ms=busy_ms,
+        encoder_frames=int(t_lens.max()), tokens=counts.tolist(), raw_tokens=raw_n.tolist())
+    log(f"decode/top_k: a ({batch}, {beam} + {beam} x {spec.joint.num_classes}) pool of 5 "
+        f"values, {ties} ties "
+        f"among the picks: the indices of numpy's stable argsort")
+    log(f"decode/beam: {config}, {batch} x {seconds:g} s, width {beam}, max_tokens "
+        f"{max_tokens}: {out['beam']['audio_s_per_s']:.2f} audio-s/s, {wall_ms:.1f} ms a call "
+        f"({int(t_lens.max())} encoder frames); per call {out['beam']['rounds']} expansion "
+        f"rounds over {out['beam']['iterations']} window iterations (width {beam} + the "
+        f"width-1 guard), {syncs} host syncs ({out['beam']['loop_syncs']} by the loops' "
+        f"exit tests), {launches} kernel launches, the card busy {busy_ms} ms of a traced "
+        f"call; tokens {counts.tolist()}")
+    if not bool((counts <= max_tokens).all()):
+        raise AssertionError(f"beam counts {counts.tolist()} exceed {max_tokens}")
+    slack = GUARD_RTOL * raw_scores.abs()
+    if not bool((scores >= raw_scores - slack).all()):
+        raise AssertionError(f"beam scores {scores.tolist()} below the width-1 raw run's "
+                             f"{raw_scores.tolist()}")
+
+    # ---- exactness checks where the model emits, below the buffer ----
+    a4, tl4 = audio[:check_utts], t_lens[:check_utts]
+    with torch.inference_mode(), blank_bias(model, bias):
+        g_tok, g_n = greedy_decode(*dec, a4, tl4, *specs, max_tokens=max_tokens)
+        b_tok, b_n, _ = beam_decode(*dec, a4, tl4, *specs, beam_width=1, max_tokens=max_tokens,
+                                    length_norm=False, merge_paths=False, search_norm=False,
+                                    greedy_guard=False)
+        w8 = beam_decode(*dec, a4, tl4, *specs, beam_width=4, max_tokens=max_tokens,
+                         frames_per_step=8)
+        w1 = beam_decode(*dec, a4, tl4, *specs, beam_width=4, max_tokens=max_tokens,
+                         frames_per_step=1)
+        hyp = g_tok[0, :int(g_n[0])].tolist()
+        margin = smallest_margin(model, a4[:1, :int(tl4[0])], hyp)
+    out["checks"] = dict(blank_bias=bias, utterances=check_utts, greedy_tokens=g_n.tolist(),
+                         beam4_tokens=w8[1].tolist(), min_top2_margin=margin)
+    log(f"decode/checks at blank bias {bias:g}, {check_utts} utterances: width 1 (raw) "
+        f"{b_n.tolist()} tokens vs greedy {g_n.tolist()}; width 4 window 8 {w8[1].tolist()} "
+        f"vs window 1 {w1[1].tolist()}; smallest top-2 margin on utterance 0's greedy "
+        f"path {margin:.4e}")
+    if not (torch.equal(b_n, g_n) and torch.equal(b_tok, g_tok)):
+        raise AssertionError("width-1 beam differs from greedy decode")
+    if not (torch.equal(w8[1], w1[1]) and torch.equal(w8[0], w1[0])):
+        raise AssertionError("width-4 beam: window 8 differs from window 1")
+    for name, n in (("greedy", g_n), ("width 4", w8[1])):
+        if not (int(n.sum()) > 0 and int(n.max()) < max_tokens):
+            raise AssertionError(f"{name} at blank bias {bias}: tokens {n.tolist()}, need "
+                                 f"some and fewer than {max_tokens} for the checks to mean "
+                                 "something")
+
+    # ---- N-best marginal rescoring (K3 on B x C lattices) ----
+    ar, tlr = audio[:rescore_utts], t_lens[:rescore_utts]
+    chunk = cfg.training.loss_chunk_size
+    with torch.inference_mode(), blank_bias(model, bias):
+        toks, cnts, _ = beam_decode_nbest(*dec, ar, tlr, *specs, beam_width=beam,
+                                          max_tokens=max_tokens)
+        for k in kernels:
+            k.launches = 0
+        sync(device)
+        t0 = time.perf_counter()
+        best_t, best_n, nll = marginal_rescore(*dec, ar, tlr, toks, cnts, *specs,
+                                               chunk_size=chunk)
+        sync(device)
+        rescore_ms = (time.perf_counter() - t0) * 1e3
+        rs_launches = {k.name: k.launches for k in kernels}
+        ac, text, tgt, tlc, ul = rescore_lattice_inputs(model.predictor, ar, tlr, toks, cnts,
+                                                        blank)
+        lpb, lpl = joint_lattice_log_probs(model.joint, ac, text, tgt, ul, blank, chunk)
+        t0 = time.perf_counter()
+        plain = transducer_alpha_loss(lpb, lpl, tlc, ul).reshape(nll.shape)
+        sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        k3_args = (lpb.contiguous(), lpl.contiguous(), tlc.to(torch.int32).contiguous(),
+                   ul.to(torch.int32).contiguous())
+        k3_ms = (device_ms(lambda: alpha_forward(*k3_args))
+                 if torch.device(device).type == "cuda" else None)
+    BC, T, U1 = lpb.shape
+    bytes_ms, bound_by = k3_bound(BC, T, U1)
+    path_ms = (T + U1 - 1) * lse_ns * 1e-6
+    fin = torch.isfinite(plain)
+    rel = float(((nll - plain).abs() / plain.abs())[fin].max()) if bool(fin.any()) else math.nan
+    rows = torch.arange(nll.shape[0], device=nll.device)
+    pick = nll.argmin(dim=1)
+    pick_gap = float(((plain[rows, pick] - plain.min(dim=1).values)
+                      / plain.min(dim=1).values.abs()).max())
+    out["rescore"] = dict(
+        lattice=[BC, T, U1], utterances=rescore_utts, candidates=nll.shape[1],
+        u_lens=cnts.tolist(), wall_ms=rescore_ms, launches=rs_launches, max_rel_err=rel,
+        pick_gap=pick_gap, k3_device_ms=k3_ms, k3_bound_ms=bytes_ms, k3_bound_by=bound_by,
+        k3_critical_path_ms=path_ms, plain_alpha_ms=plain_ms, finite=int(fin.sum()),
+        picked=pick.tolist())
+    log(f"decode/rescore: {rescore_utts} utterances x {nll.shape[1]} candidates (width "
+        f"{beam} + greedy) = lattice ({BC}, {T}, {U1}), candidate tokens {cnts.tolist()}: "
+        f"{rescore_ms:.1f} ms wall, launches {rs_launches}; NLLs within {rel:.2e} of the "
+        f"plain alpha over {int(fin.sum())} finite entries; picks {pick.tolist()} "
+        f"(their plain NLL {pick_gap:.2e} above the plain minimum); K3 device "
+        f"{k3_ms if k3_ms is None else f'{k3_ms:.4f}'} ms at this shape, bytes bound "
+        f"{bytes_ms:.6f} ms, critical path {path_ms:.4f} ms ({T + U1 - 1} diagonals x "
+        f"{lse_ns:.1f} ns); plain alpha {plain_ms:.1f} ms")
+    k3 = next(k for k in kernels if k.name == "alpha_fwd")
+    others = {n: c for n, c in rs_launches.items() if n != k3.name and c}
+    if torch.device(device).type == "cuda" and (rs_launches[k3.name] < 1 or others):
+        raise AssertionError(f"rescoring launched {rs_launches}: K3 and only K3 expected")
+    if not torch.equal(fin, torch.isfinite(nll)):
+        raise AssertionError("rescoring and the plain alpha disagree on which NLLs are finite")
+    if not rel <= RESCORE_RTOL:
+        raise AssertionError(f"rescoring NLLs {rel:.3e} from the plain alpha")
+    if not pick_gap <= RESCORE_RTOL:
+        raise AssertionError(f"a pick's plain NLL is {pick_gap:.3e} above the minimum")
+    if not (torch.equal(best_n, cnts[rows, pick]) and torch.equal(best_t, toks[rows, pick])):
+        raise AssertionError("marginal_rescore returned another candidate than its argmin")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"decode phase: {out['seconds']:.1f} s")
+    return out
+
+
+LSTM_CONFIG = "base_sp_lstm"
+LSTM_TRAIN_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_seconds=10",
+                        "data.synthetic_size=16", "training.global_batch_size=4",
+                        "training.log_steps=1", "training.eval_max_elements=8",
+                        "tokenizer.spm_model=''"]
+# Streamed equals offline exactly with frozen batch-norm statistics and an
+# uncentred featurizer (a centred one reflects each chunk's edges); the
+# LSTM config's instance norms and centred mel frames are swapped for these.
+LSTM_STREAM_OVERRIDES = ("encoder.norm_type=batch", "featurizer.center=false")
+
+
+def lstm_phase(workdir: Path, device, kernels, config=LSTM_CONFIG,
+               overrides=LSTM_TRAIN_OVERRIDES, steps=2, eval_batch=4, eval_elements=8,
+               stream=None) -> dict:
+    """The LSTM predictor through the port's entry points on ``device``:
+    ``cli.train`` ``steps`` steps on ``config`` (its data settings,
+    synthetic 10 s utterances, the in-code vocabulary; K1-K4 launched in
+    every step, K5-K7 never; loss and gradient norm finite), ``cli.eval``
+    on its checkpoint greedy and with ``--beam 4 --rescore`` (finite
+    WERs), and streamed against offline on ``config`` with
+    LSTM_STREAM_OVERRIDES (``stream_offline_check``; ``stream`` overrides
+    its arguments)."""
+    from rnnt_tpu_torch.cli import eval as cli_eval
+    from rnnt_tpu_torch.cli import train as cli_train
+    from rnnt_tpu_torch.config.config import load_config, resolve_config
+    from rnnt_tpu_torch.data.dataset import synthetic_piece_table
+
+    t_phase = time.perf_counter()
+    vocab = workdir / "lstm_vocab.json"
+    vocab.write_text(json.dumps(synthetic_piece_table()))
+    exp = workdir / "lstm_exp"
+    args = ["--config", config, "--output-base", str(exp), "--device", str(device),
+            "--max-steps", str(steps)]
+    for o in list(overrides) + [f"tokenizer.vocab_json={vocab}"]:
+        args += ["--set", o]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    final_wer = cli_train.main(args)
+    sync(device)
+    train_s = time.perf_counter() - t0
+    run_dir = _latest_run(exp, load_config(resolve_config(config)).model_name)
+    rows = _read_steps(run_dir)
+    lattice = {"joint_fwd", "joint_bwd", "alpha_fwd", "beta_bwd"}
+    for st in rows:
+        log(f"lstm/train step {st['step']}: loss {st['loss']:.4f}, grad norm "
+            f"{st['grad_norm']:.4f}, {st['seconds']:.4f} s, {st['audio_s_per_s']:.2f} "
+            f"audio-s/s, launches {st['launches']}")
+        if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
+            raise AssertionError(f"lstm: non-finite step {st}")
+        if torch.device(device).type == "cuda":
+            bad = {k: n for k, n in st["launches"].items()
+                   if (k in lattice) != bool(n)}
+            if bad:
+                raise AssertionError(f"lstm step {st['step']}: K1-K4 must launch and "
+                                     f"K5-K7 must not, got {st['launches']}")
+    if len(rows) != steps:
+        raise AssertionError(f"lstm: {len(rows)} steps logged, expected {steps}")
+    ckpt = run_dir / f"checkpoint_step_{steps}"
+    evals = {}
+    for tag, extra in (("greedy", []), ("beam4_rescore", ["--beam", "4", "--rescore"])):
+        t0 = time.perf_counter()
+        res = cli_eval.main([str(ckpt), "--device", str(device), "--batch-size",
+                             str(eval_batch), "--max-elements", str(eval_elements), *extra])
+        evals[tag] = dict(wer=res["wer"], utterances=res["utterances"],
+                          seconds=time.perf_counter() - t0)
+        log(f"lstm/cli.eval {tag}: WER {res['wer']:.4f} over {res['utterances']} utterances "
+            f"in {evals[tag]['seconds']:.1f} s")
+        if not math.isfinite(res["wer"]):
+            raise AssertionError(f"lstm cli.eval {tag}: WER {res['wer']}")
+    stream = stream_offline_check(workdir, device, **(stream or dict(
+        config=config, overrides=LSTM_STREAM_OVERRIDES,
+        cases=((LSTM_STREAM_BIAS, 10.0, 64),))))
+    out = dict(config=config, final_wer=final_wer, train_s=train_s,
+               steps=[{k: st[k] for k in ("step", "loss", "grad_norm", "seconds",
+                                          "audio_s_per_s", "launches")} for st in rows],
+               eval=evals, stream=stream, seconds=time.perf_counter() - t_phase)
+    log(f"lstm phase: {out['seconds']:.1f} s (cli.train {train_s:.1f} s with start-up and "
+        f"its eval)")
+    return out
 
 
 # ----------------------------- multi-rank training -----------------------------
@@ -2422,6 +2798,22 @@ TRACE_GROUPS = (("K1", r"gemm_kernel<[^>]*LsePass>|::fwd_h_kernel\("),
                 ("convolutions", r"(?i)conv|cudnn|fprop|dgrad|wgrad"))
 
 
+def busy_us(kernels) -> float:
+    """Microseconds in which at least one of the profiler's device events
+    ``kernels`` ran (their union)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    if not spans:
+        return 0.0
+    total, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + cur_e - cur_s
+
+
 def report_trace(prof, wall_s: float, what: str, out: Path, top: int = 15,
                  kind=torch.autograd.DeviceType.CUDA, per: int = 1,
                  per_what: str = "trace") -> float:
@@ -2432,23 +2824,15 @@ def report_trace(prof, wall_s: float, what: str, out: Path, top: int = 15,
     kernels = [e for e in prof.events() if e.device_type == kind]
     if not kernels:
         raise AssertionError("the profiler saw no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
+    busy = busy_us(kernels)
     by_name: dict[str, list] = {}
     for e in kernels:
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.end - e.time_range.start
         acc[1] += 1
-    idle = 100 - busy_us / 1e4 / wall_s
+    idle = 100 - busy / 1e4 / wall_s
     log(f"profile: {what}, {wall_s:.3f} s wall (traced), {len(kernels)} kernels, "
-        f"device busy {busy_us / 1e3:.2f} ms = {busy_us / 1e4 / wall_s:.1f} % of wall, "
+        f"device busy {busy / 1e3:.2f} ms = {busy / 1e4 / wall_s:.1f} % of wall, "
         f"idle {idle:.1f} %")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
@@ -2651,6 +3035,9 @@ def main() -> None:
             profile_phase(path["cfg"], path["model"], device, args.profile)
         del path["model"]
         serve = serve_phase(Path(tmp), device, kernels + [K6, K7], args.profile)
+        decode = decode_phase(Path(tmp), device, kernels + [K6, K7],
+                              measured["K3"]["lse_step_ns"])
+        decode["lstm"] = lstm_phase(Path(tmp), device, kernels + [K6, K7])
         train = train_phase(Path(tmp), device, kernels)
         grad_phase(device, kernels, train)
         ranks = multi_rank_phase(Path(tmp), device, train)
@@ -2686,6 +3073,12 @@ def main() -> None:
                           + (f"; {m['gemm_note']}" if "gemm_note" in m else "")),
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
+    rs = decode["rescore"]
+    next(e for e in entries if e["name"].startswith("K3"))["rescore_case"] = dict(
+        shape="B*C={} T={} U1={}".format(*rs["lattice"]), device_ms=rs["k3_device_ms"],
+        bound_ms=rs["k3_bound_ms"], bound_by=rs["k3_bound_by"],
+        critical_path_ms=rs["k3_critical_path_ms"], plain_ms=rs["plain_alpha_ms"],
+        launches=rs["launches"]["alpha_fwd"], max_rel_err=rs["max_rel_err"])
     tsteps = ranks["tshard"]["steps2"]
     for key, k, plain in (("K6", K6, "k6"), ("K7", K7, "k7")):
         ev, lg = chain["eval"], chain["long"]
@@ -2721,6 +3114,7 @@ def main() -> None:
     print(card)
     print(json.dumps({"multi_rank": multi}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"decode": decode}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Eval CLI: ``python -m rnnt_tpu_torch.cli.eval <checkpoint_dir>``.
 
-Port of ``rnnt_tpu/cli/eval.py`` in its greedy mode: load the checkpoint
-directory (``config.yaml`` + ``params.npz``, compat/jax_params.py) or an
-explicit ``--config``, greedy-decode the eval set, print each
-original/decoded pair, the corpus WER and the wall time per sample.
-Runs on CUDA unless ``--device cpu``.  ``--beam`` and ``--rescore`` are not
-ported yet.
+Port of ``rnnt_tpu/cli/eval.py``: load the checkpoint directory
+(``config.yaml`` + ``params.npz``, compat/jax_params.py) or an explicit
+``--config``, decode the eval set under ``torch.inference_mode``, print
+each original/decoded pair, the corpus WER and the wall time per sample.
+Greedy decode by default; ``--beam N`` runs beam search of width N
+(decode/beam.py, its defaults); with ``--rescore`` each utterance's
+hypothesis is the candidate of least exact NLL among the final beam and
+the greedy chain (decode/rescore.py, the loss's ``loss_chunk_size``).
+Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import torch
 
 from rnnt_tpu_torch.compat.jax_params import find_config, load_checkpoint
 from rnnt_tpu_torch.config.config import build_featurizer_spec, build_model_spec, load_config
+from rnnt_tpu_torch.decode.beam import beam_decode, beam_decode_nbest
 from rnnt_tpu_torch.decode.greedy import greedy_decode
+from rnnt_tpu_torch.decode.rescore import marginal_rescore
 from rnnt_tpu_torch.train.loop import _load_tokenizer, eval_batches
 from rnnt_tpu_torch.train.metrics import wer
 from rnnt_tpu_torch.train.step import batch_to_device, make_eval_forward
@@ -31,6 +36,12 @@ def main(argv=None) -> dict:
                     help="config yaml (default: next to checkpoint)")
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--max-elements", type=int, default=200)
+    ap.add_argument("--beam", type=int, default=0,
+                    help="beam width (0 = greedy decode)")
+    ap.add_argument("--rescore", action="store_true",
+                    help="with --beam: pick each utterance's hypothesis from the "
+                         "final beam (+ greedy candidate) by the exact "
+                         "sum-over-alignments NLL (decode/rescore.py)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback")
     args = ap.parse_args(argv)
@@ -45,15 +56,26 @@ def main(argv=None) -> dict:
                       max_batches=max(args.max_elements // args.batch_size, 1))
     eval_forward = make_eval_forward(spec, fspec, cfg.training.precision)
     max_tokens = max(cfg.training.token_buckets)
+    dec = (model.predictor, model.joint)
+    specs = (spec.predictor, spec.joint)
+
+    def decode(audio, t_lens):
+        if args.beam > 0 and args.rescore:
+            toks, cnts, _ = beam_decode_nbest(*dec, audio, t_lens, *specs,
+                                              beam_width=args.beam, max_tokens=max_tokens)
+            return marginal_rescore(*dec, audio, t_lens, toks, cnts, *specs,
+                                    chunk_size=cfg.training.loss_chunk_size)[:2]
+        if args.beam > 0:
+            return beam_decode(*dec, audio, t_lens, *specs, beam_width=args.beam,
+                               max_tokens=max_tokens)[:2]
+        return greedy_decode(*dec, audio, t_lens, *specs, max_tokens=max_tokens)
 
     originals, decoded = [], []
     t0 = time.time()
     with torch.inference_mode():
         for batch in it:
             audio, t_lens = eval_forward(model, batch_to_device(batch, dev))
-            tokens, counts = greedy_decode(
-                model.predictor, model.joint, audio, t_lens, spec.predictor,
-                spec.joint, max_tokens=max_tokens)
+            tokens, counts = decode(audio, t_lens)
             tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
             for i in range(len(counts)):
                 if batch["target_lens"][i] == 0:

@@ -18,8 +18,16 @@ so a test can feed the reference's draws to the port.
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 import torch
+# scipy is imported here, once, and not inside the functions: the functions
+# run in a pool of worker threads, and threads that import scipy at the same
+# time can see its package half initialised (ImportError: partially
+# initialized module 'scipy._lib._testutils').
+from scipy import fft as sfft  # float32-preserving (np.fft upcasts)
+from scipy.signal import lfilter, resample_poly
 
 
 class Augmentation:
@@ -75,8 +83,6 @@ class ShapedNoise(Augmentation):
         # The FFT runs at next_fast_len (an arbitrary post-resample length
         # can have large prime factors) and the per-band envelope is built
         # vectorized.  The noise is random, so padding changes no semantics.
-        from scipy import fft as sfft
-
         level = 10 ** rng.uniform(np.log10(self.lo), np.log10(self.hi))
         n = len(audio)
         noise = rng.rand(n).astype(np.float32)
@@ -109,10 +115,6 @@ def _resample(audio: np.ndarray, ratio: float) -> np.ndarray:
     relative error ~1e-3 — inaudible for augmentation) so resample_poly's
     polyphase filter stays short; a 1000/997-style coprime pair would
     design a 20k-tap filter."""
-    from fractions import Fraction
-
-    from scipy.signal import resample_poly
-
     frac = Fraction(ratio).limit_denominator(32)
     up, down = frac.denominator, max(frac.numerator, 1)
     return resample_poly(audio, up, down).astype(audio.dtype)
@@ -167,8 +169,6 @@ def _time_stretch(audio: np.ndarray, rate: float, frame: int = 512) -> np.ndarra
     window = np.hanning(frame).astype(np.float32)
 
     # Analysis frame positions (float hop hs*rate, clamped to the signal).
-    from scipy import fft as sfft  # float32-preserving (np.fft upcasts)
-
     pos = np.minimum((np.arange(m_frames) * hs * rate).astype(np.int64),
                      n - frame)
     frames = np.lib.stride_tricks.sliding_window_view(audio, frame)[pos]
@@ -278,8 +278,6 @@ class Compressor(Augmentation):
         # (vectorized: a data-dependent dual-coefficient IIR would need a
         # Python loop).  Rising edges track the fast attack pole, falling
         # edges the slow release pole — the classic two-follower topology.
-        from scipy.signal import lfilter
-
         block_ms = 1000.0 * block / sample_rate
         atk = float(np.exp(-block_ms / max(self.attack_ms, 1e-3)))
         rel = float(np.exp(-block_ms / max(self.release_ms, 1e-3)))

@@ -5,7 +5,8 @@ featurizer's ``n_fft - hop`` overlap) is featurized, run through the
 streaming encoder with one carry state per causal conv
 (``Encoder.streaming``), and decoded greedily from the cross-chunk decode
 carry (``greedy_decode_incremental``).  Every stream's state — conv
-carries, predictor feature and token window — stays on the model's device
+carries, predictor feature and predictor state (the conv predictor's token
+window, or the LSTM's per-layer (h, c)) — stays on the model's device
 between chunks; only the sample buffers and the emitted token ids live on
 the host.
 
@@ -14,7 +15,10 @@ the host.
   their own pace onto one set of stacked state tensors: ``pump`` gathers
   the lanes with a whole chunk buffered, steps them as one sub-batch
   (padded to a power of two; padding lanes read and write the sink lane
-  ``slots``, which is never surfaced) and scatters them back.  Only
+  ``slots``, which is never surfaced) and scatters them back, leaf by leaf
+  of the carry (``_scatter_lanes``, as ``rnnt_tpu/decode/streaming.py:135``
+  does); a newly opened lane is reset to the fresh carry, which for the
+  LSTM is one blank step from the zero state, not zeros.  Only
   ``pump`` touches the device: ``open``, ``feed``, ``flush`` and ``close``
   are host work, so a server's request threads can call them while its
   pump thread owns the card.
@@ -33,10 +37,19 @@ from collections import deque
 import numpy as np
 import torch
 
-from rnnt_tpu_torch.decode.greedy import decode_init_carry, greedy_decode_incremental
+from rnnt_tpu_torch.decode.greedy import (
+    decode_init_carry, greedy_decode_incremental, tree_map)
 from rnnt_tpu_torch.models.encoder import encoder_streaming_init_state
 from rnnt_tpu_torch.models.rnnt import RNNT
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec, make_featurizer
+
+
+def _scatter_lanes(tree, sub, idx: torch.Tensor) -> None:
+    """``tree[idx] = sub`` leaf by leaf, in place; a leaf of ``sub`` with
+    one lane is broadcast over ``idx``."""
+    def put(x, s):
+        x[idx] = s
+    tree_map(put, tree, sub)
 
 
 def _step(model: RNNT, featurize, chunk: torch.Tensor, conv_states, carry,
@@ -164,7 +177,8 @@ class StreamingSessionPool:
                 slots + 1, spec.encoder, device=dev)
             self.decode_carry = decode_init_carry(
                 model.predictor, spec.predictor, spec.joint, slots + 1, dev)
-            self._fresh_feat = self.decode_carry[0][0].clone()
+            self._fresh_carry = decode_init_carry(
+                model.predictor, spec.predictor, spec.joint, 1, dev)
 
         self._free = list(range(slots))
         self._stale: set[int] = set()  # opened lanes still holding old state
@@ -193,12 +207,9 @@ class StreamingSessionPool:
         if not self._stale:
             return
         idx = torch.tensor(sorted(self._stale), device=self.device)
-        feat, (window, valid) = self.decode_carry
         for s in self.conv_states:
             s[idx] = 0
-        feat[idx] = self._fresh_feat
-        window[idx] = self.spec.joint.blank_idx
-        valid[idx] = 1
+        _scatter_lanes(self.decode_carry, self._fresh_carry, idx)
         self._stale.clear()
 
     def close(self, slot: int) -> None:
@@ -233,17 +244,15 @@ class StreamingSessionPool:
         """Gather lanes ``idx``, step them, scatter them back.  Padding
         lanes repeat the sink's index; the sink is never read, so which of
         its duplicate writes lands does not matter."""
-        feat, (window, valid) = self.decode_carry
         conv_sub = tuple(s[idx] for s in self.conv_states)
-        carry_sub = (feat[idx], (window[idx], valid[idx]))
+        carry_sub = tree_map(lambda x: x[idx], self.decode_carry)
         tokens, counts, n_enc, conv_sub, carry_sub = _step(
             self.model, self._featurize, chunk, conv_sub, carry_sub,
             self.max_tokens_per_chunk, self.max_symbols_per_step)
         for s, sub in zip(self.conv_states, conv_sub):
             s[idx] = sub
         if n_enc:
-            f, (w, v) = carry_sub
-            feat[idx], window[idx], valid[idx] = f, w, v
+            _scatter_lanes(self.decode_carry, carry_sub, idx)
         return tokens, counts
 
     def pump(self) -> dict[int, list[int]]:

@@ -68,6 +68,13 @@ def joint_apply(joint: Joint, audio: torch.Tensor, text: torch.Tensor) -> torch.
     return joint.out(torch.tanh(audio[:, :, None, :] + text[:, None, :, :]))
 
 
+def joint_single(joint: Joint, audio_frame: torch.Tensor,
+                 text_frame: torch.Tensor) -> torch.Tensor:
+    """One (t, u) per lane: (B, H) + (B, H) -> (B, V)."""
+    audio_frame, text_frame = project_sides(joint, audio_frame, text_frame)
+    return joint.out(torch.tanh(audio_frame + text_frame))
+
+
 def joint_window(joint: Joint, audio_frames: torch.Tensor,
                  text_frame: torch.Tensor) -> torch.Tensor:
     """W audio frames against one text feature per lane:

@@ -21,6 +21,7 @@ from rnnt_tpu_torch.models.predictor import (
     ConvPredictorSpec,
     LSTMPredictorSpec,
     make_predictor,
+    predictor_apply,
 )
 from rnnt_tpu_torch.ops.norm import Norm
 
@@ -103,7 +104,8 @@ def rnnt_forward(model: RNNT, features: torch.Tensor, targets: torch.Tensor,
     new_state): the batch-norm running statistics after this forward (the
     current ones outside training).  A generator of None turns dropout off,
     as ``rng=None`` does in JAX."""
-    text = model.predictor(prepend_blank(targets, model.spec.blank_idx),
+    text = predictor_apply(model.predictor,
+                           prepend_blank(targets, model.spec.blank_idx),
                            training, generator)
     new_state: dict = {}
     audio = model.encoder(features, training, generator, new_state)

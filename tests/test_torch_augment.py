@@ -533,6 +533,22 @@ def test_batch_iterator_with_host_augmentor_equals_jax(vocab, workers, mode):
             _eq(g[k], w[k])
 
 
+def test_augment_imports_scipy_before_worker_threads():
+    """Importing the module loads the scipy parts the recipe calls, so
+    BatchIterator's worker threads never import scipy concurrently (threads
+    that do can see scipy half initialised and raise ImportError).  Checked
+    in a fresh interpreter, where nothing else has imported scipy yet."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "assert 'scipy' not in sys.modules\n"
+            "import rnnt_tpu_torch.data.augment\n"
+            "missing = [m for m in ('scipy.fft', 'scipy.signal') if m not in sys.modules]\n"
+            "assert not missing, missing\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
 # ------------------------------ SpecAugment ------------------------------
 
 def jax_spec_draws(key, B, T, F, nt=2, wt=30, nf=2, wf=27):

@@ -9,6 +9,8 @@
 * ``rnnt_tpu_torch.cli.infer`` offline and ``--streaming`` on a WAV written
   in the test: the text of rnnt_tpu's eval forward + greedy decode, and of
   its StreamingSession, on the same weights;
+* ``read_wav`` refuses a WAV whose samples are not 16-bit (8-bit here),
+  where rnnt_tpu's reader decodes any bytes as int16;
 * ``--bundle`` is refused with the reason.
 """
 
@@ -203,6 +205,21 @@ def test_infer_matches_jax(tmp_path, capsys, streaming):
         ids = np.asarray(tokens)[0, : int(counts[0])].tolist()
     assert len(ids) > 0
     assert text == UnigramTokenizer.from_vocab_json(cfg.tokenizer.vocab_json).decode(ids)
+
+
+def test_read_wav_refuses_8bit(tmp_path):
+    """An 8-bit WAV (the ``wave`` module's unsigned bytes) raises ValueError.
+    This diverges from ``rnnt_tpu/cli/infer.py:24-34``, which reads any
+    WAV's bytes as int16 samples, so 8-bit audio decodes there as noise at
+    half the length."""
+    path = tmp_path / "a8.wav"
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(1)
+        w.setframerate(16000)
+        w.writeframes(np.full(1600, 128, np.uint8).tobytes())
+    with pytest.raises(ValueError, match="expected 16-bit samples, got 8-bit"):
+        cli_infer.read_wav(str(path))
 
 
 def test_infer_refuses_other_rates(tmp_path):
