@@ -27,6 +27,17 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    their device time (torch.profiler) and a critical-path bound: their
    number of anti-diagonals x the latency of one dependent LSE step of
    the kernels' own LSE, timed on a one-warp chain (``rnnt_lse_chain``);
+   then K1 and K2 on vocabulary slices (slice 12): scaled_tp's joint at
+   (2, 32, 17, 2048, 1024), at the banded loss's patches (128, 16, 16,
+   2048, 1024) and at the tp case's own lattice (4, 512, 65, 2048, 1024),
+   each cut into two 512-wide slices at v0 = 0 and 512 (the blank on the
+   second, label 0 on the first), each slice against its plain version
+   (K1_TOL, K2_REL_L2) and timed beside its bound, the slices' K1 outputs
+   merged (lse by logsumexp, blank and label summed) against whole-V K1
+   and its plain version, and K2 from the merged lse (dW concatenated,
+   denc and dpred summed) against whole-V K2 and its plain version; K3
+   and K4 against their plain versions on the tp case's (4, 512, 65)
+   lattice;
 3a. chain phase (slice 4): K6 and K7 on every shard of the eval lattice
    (4, 504, 65) cut into 2 shards and the long lattice (4, 1000, 257) cut
    into 4, each shard at its global row offset with the previous (K6) or
@@ -118,14 +129,29 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    once per step on each rank, K3/K4 never; rank 0's eval through K1 +
    K3) against 1 rank with the chunked loss, and the data-parallel
    flagship (``mesh.data=2``, 1 pruned-warmup step and 1 banded step; K1-K5
-   on each rank) against 1 rank: each step's loss and gradient norm within
-   the stated tolerances; then what the transport costs: a carry row per
-   hop, the log-likelihood all-reduce and the flat gradient all-reduce
-   over gloo (``--exchange``, one rank of that measurement);
+   on each rank) against 1 rank; the tensor-parallel joint (slice 12):
+   full-width ``scaled_tp`` (202,905,216 parameters; synthetic 10 s
+   utterances, the batch cut from 16 to 4 to bound the phase's time) on
+   ``mesh.data=1 mesh.model=2``, 2 steps, each rank holding V / 2 of the
+   joint and H / 2 of ``encoder.out`` and ``predictor.linear`` (the count
+   it prints is read back), K1-K4 once per step on each rank and K5-K7
+   never, every rank's replicated parameters bit-equal after the steps
+   (cli.train's line, read back); the same with the pruned loss (1 warmup
+   step and 1 banded step, K1 and K2 on V slices in both); batch norm over
+   the data group (slice 12): full-width
+   ``base_convjs_fullcausal`` on ``mesh.data=2``, 1 step, K1-K4 once a
+   rank; each step's loss and gradient norm within the stated tolerances;
+   then what the transport costs: a carry row per hop, the log-likelihood
+   all-reduce and the flat gradient all-reduce over gloo, and the
+   tensor-parallel joint's collectives at scaled_tp's shapes (the lse
+   merge, K2's denc and dpred all-reduce, encoder.out's gather and its
+   input gradient's all-reduce; ``--exchange``, one rank of that
+   measurement);
 7. print the card's name and power limit, a ``{"multi_rank": ...}`` line,
    a ``{"serve": ...}`` line, a ``{"decode": ...}`` line, a
-   ``{"kernels": [...]}`` line (K1-K7; K3's entry with its rescoring
-   case), then, last, the ``{"ok": true, ...}`` line.
+   ``{"kernels": [...]}`` line (K1-K7; K1's and K2's entries with their
+   slice cases and launches per tensor-parallel step, K3's with its
+   rescoring case), then, last, the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
 the path phase) and of three banded train steps without and with device
@@ -650,6 +676,133 @@ def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
     return out
 
 
+# ----------------------- K1 and K2 on a vocabulary slice -----------------------
+
+def slice_case(device, dims, parts=2, reps=20) -> dict:
+    """K1 and K2 on each vocabulary slice of ``dims`` as ``parts`` model
+    ranks run them (V / parts wide at v0 = 0, V / parts, ...; k1_inputs
+    puts the blank on the last slice and every last column's label 0 on
+    the first) against their plain versions on the same slice (K1_TOL;
+    K2_REL_L2, clamp off and at 0.01), timed beside the slice's bound; the
+    slices' K1 outputs merged (lse by logsumexp, blank and label summed, as
+    parallel/partition.py merges them) against whole-V K1 (K1_TOL) and
+    against the plain version's whole-V outputs (K1_TOL), and K2 on each
+    slice from the merged lse: concatenated dW and db, summed denc and
+    dpred, against whole-V K2 and the whole-V plain version (K2_REL_L2).
+    Calls here are not the main path's."""
+    from rnnt_tpu_torch.ops.transducer_pallas import (
+        fused_joint_backward, fused_joint_bwd_plain, fused_joint_forward,
+        fused_joint_outputs_plain)
+
+    args, cot = k2_case(dims, device)
+    enc, pred, w, b, labels, blank = args
+    Vs = dims["V"] // parts
+    sdims = dict(dims, V=Vs)
+    whole = fused_joint_forward(*args)
+    whole_plain = fused_joint_outputs_plain(*args)
+    slices, outs = [], []
+    for i in range(parts):
+        v0 = i * Vs
+        sl = (enc, pred, w[:, v0:v0 + Vs].contiguous(), b[v0:v0 + Vs].contiguous(), labels,
+              blank, v0)
+        got = fused_joint_forward(*sl)
+        err1 = max(check_close(f"K1 slice v0={v0} {n}", g, x, **K1_TOL)
+                   for n, g, x in zip(("lse", "blank", "label"), got,
+                                      fused_joint_outputs_plain(*sl)))
+        outs.append((sl, got))
+        call = lambda: fused_joint_forward(*sl)  # noqa: E731
+        slices.append(dict(v0=v0, k1=dict(
+            max_abs_err=err1, ms=cuda_ms(call, reps),
+            plain_ms=cuda_ms(lambda: fused_joint_outputs_plain(*sl), 3, warmup=1),
+            bound_ms=k1_bound_ms(**sdims), bound_by="operations")))
+        if torch.device(device).type == "cuda":
+            slices[-1]["k1"]["device_ms"] = device_ms(call, reps)
+    lse = torch.logsumexp(torch.stack([o[1][0] for o in outs]), dim=0)
+    merged = (lse, sum(o[1][1] for o in outs), sum(o[1][2] for o in outs))
+    merged_err = max(check_close(f"K1 merged slices {n} against {ref}", g, x, **K1_TOL)
+                     for ref, want in (("whole-V K1", whole), ("whole-V plain", whole_plain))
+                     for n, g, x in zip(("lse", "blank", "label"), merged, want))
+    del whole_plain
+    gb, gl, gs = cot[1:]
+    want = fused_joint_backward(*args, whole[0], gb, gl, gs)
+    want_plain = fused_joint_bwd_plain(*args, whole[0], gb, gl, gs)
+    grads = []
+    for (sl, _), m in zip(outs, slices):
+        v0 = sl[-1]
+        err2 = 0.0
+        for clamp in (-1.0, 0.01):
+            got = fused_joint_backward(*sl[:-1], lse, gb, gl, gs, clamp, v0)
+            ref = fused_joint_bwd_plain(*sl[:-1], lse, gb, gl, gs, clamp, v0)
+            for n, x, y in zip(("denc", "dpred", "dW", "db"), got, ref):
+                e = rel_l2(x, y)
+                if not (e <= K2_REL_L2 and bool(torch.isfinite(x).all())):
+                    raise AssertionError(f"K2 slice v0={v0} clamp={clamp} {n}: relative "
+                                         f"L2 error {e:.3e} > {K2_REL_L2}")
+                err2 = max(err2, float((x - y).abs().max()))
+            if clamp < 0:
+                grads.append(got)
+            del ref
+        call = lambda: fused_joint_backward(*sl[:-1], lse, gb, gl, gs, -1.0, v0)  # noqa: E731
+        m["k2"] = dict(
+            max_abs_err=err2, ms=cuda_ms(call, reps),
+            plain_ms=cuda_ms(lambda: fused_joint_bwd_plain(*sl[:-1], lse, gb, gl, gs, -1.0,
+                                                           v0), 3, warmup=1),
+            bound_ms=k2_bound_ms(**sdims), bound_by="operations")
+        if torch.device(device).type == "cuda":
+            m["k2"]["device_ms"] = device_ms(call, reps)
+    merged_grads = (sum(g[0] for g in grads), sum(g[1] for g in grads),
+                    torch.cat([g[2] for g in grads], 1), torch.cat([g[3] for g in grads]))
+    merged_k2 = {}
+    for ref, whole_grads in (("whole-V K2", want), ("whole-V plain", want_plain)):
+        for n, x, y in zip(("denc", "dpred", "dW", "db"), merged_grads, whole_grads):
+            e = rel_l2(x, y)
+            merged_k2[n] = max(merged_k2.get(n, 0.0), e)
+            if not e <= K2_REL_L2:
+                raise AssertionError(f"K2 merged slices {n}: relative L2 {e:.3e} against "
+                                     f"{ref} > {K2_REL_L2}")
+    for m in slices:
+        k1, k2 = m["k1"], m["k2"]
+        log(f"K1/K2 slice v0={m['v0']} of {dims} (V {Vs}) ok: K1 max abs err "
+            f"{k1['max_abs_err']:.3e}, {k1['ms']:.4f} ms (device "
+            f"{k1.get('device_ms', float('nan')):.4f}; plain {k1['plain_ms']:.4f}, bound "
+            f"{k1['bound_ms']:.4f}); K2 max abs err {k2['max_abs_err']:.3e}, "
+            f"{k2['ms']:.4f} ms (device {k2.get('device_ms', float('nan')):.4f}; plain "
+            f"{k2['plain_ms']:.4f}, bound {k2['bound_ms']:.4f})")
+    log(f"K1 slices merged = whole V (K1 and plain) within {merged_err:.3e}; K2 from the "
+        "merged lse against whole-V K2 and plain: "
+        + ", ".join(f"{n} rel L2 {e:.2e}" for n, e in merged_k2.items()))
+    return dict(shape="B={B} T={T} U1={U1} H={H} V={V}".format(**dims), parts=parts,
+                slices=slices, k1_merged_max_abs_err=merged_err, k2_merged_rel_l2=merged_k2)
+
+
+def lattice_case(device, dims) -> dict:
+    """K3 and K4 on a (B, T, U1) lattice against their plain versions
+    (K3_TOL, K4_TOL); not timed."""
+    from rnnt_tpu_torch.ops.lattice_pallas import (
+        alpha_forward, alpha_plain, beta_backward, beta_plain)
+
+    k3 = k3_inputs(**dims, device=device)
+    nll, alpha = alpha_forward(*k3)
+    nll_p, alpha_p = alpha_plain(*k3)
+    err3 = check_k3(nll, alpha, nll_p, alpha_p, k3[2], k3[3])
+    args = (k3[0], k3[1], alpha_p, k3[2], k3[3], nll_p, torch.ones_like(nll_p))
+    err4 = max(check_close(f"K4 {n}", x, y, **K4_TOL)
+               for n, x, y in zip(("glpb", "glpl"), beta_backward(*args), beta_plain(*args)))
+    log(f"K3/K4 ok {dims}: max abs err {err3:.3e} / {err4:.3e}")
+    return dict(shape="B={B} T={T} U1={U1}".format(**dims), k3_max_abs_err=err3,
+                k4_max_abs_err=err4)
+
+
+def slice_phase(device, cases) -> dict:
+    """``slice_case`` for each (tag, dims) of ``cases``; ``lattice_case`` on
+    the lattice of the one tagged ``tp`` (the tensor-parallel step's)."""
+    out = {tag: slice_case(device, dims) for tag, dims in cases}
+    if "tp" in out:
+        dims = dict(cases)["tp"]
+        out["tp"]["lattice"] = lattice_case(device, {k: dims[k] for k in ("B", "T", "U1")})
+    return out
+
+
 # ------------------------- K6 and K7: the T-sharded chain -------------------------
 
 # (tag, lattice, shards): the eval lattice cut into 2 shards, the long one into 4.
@@ -993,7 +1146,8 @@ def joint_fwd_arity(source: Path) -> int:
     """The number of parameters of ``rnnt_joint_fwd`` in a joint_fwd.cu:
     15 for the earlier single-kernel design (enc, pred, w, bias, labels,
     lse, blank, label, B, T, U1, H, V, blank, stream), 17 for the h pass +
-    wgmma design (h workspace, Hp and Vp added)."""
+    wgmma design (h workspace, Hp and Vp added), 18 since the vocabulary
+    offset v0 (added after blank)."""
     text = source.read_text()
     m = re.search(r'extern "C" int rnnt_joint_fwd\(([^)]*)\)', text)
     if m is None:
@@ -1015,7 +1169,7 @@ def build_joint_fwd_trees(dirs: list[Path]) -> list[tuple[str, int, object]]:
         procs.append((d, out, subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(d / "joint_fwd.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = [("this", 17, K1.fn())]
+    fns = [("this", 18, K1.fn())]
     for d, out, proc in procs:
         build_log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -1024,11 +1178,12 @@ def build_joint_fwd_trees(dirs: list[Path]) -> list[tuple[str, int, object]]:
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {d}/joint_fwd.cu: {line.strip()}")
         arity = joint_fwd_arity(d / "joint_fwd.cu")
-        if arity not in (15, 17):
+        if arity not in (15, 17, 18):
             raise RuntimeError(f"{d}/joint_fwd.cu: rnnt_joint_fwd takes {arity} arguments")
         fn = getattr(ctypes.CDLL(str(out)), "rnnt_joint_fwd")
-        fn.argtypes = K1.argtypes if arity == 17 else (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.argtypes = {18: K1.argtypes,
+                       17: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                       15: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}[arity]
         fn.restype = ctypes.c_int
         fns.append((str(d), arity, fn))
     return fns
@@ -1048,6 +1203,7 @@ def joint_fwd_call(fn, arity: int, inputs: list, h_ws, outs):
         args = (enc, pred, w, b, labels, *outs, B, T, U1, H, V, blank)
     else:
         args = (enc, pred, w, b, labels, h_ws, *outs, B, T, U1, H, V, V, blank)
+        args += (0,) if arity == 18 else ()
     c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
 
     def run():
@@ -1071,21 +1227,25 @@ def parent_joint_phase(device, parents: list[Path]) -> dict:
         want = fused_joint_outputs_plain(*inputs)
         outs = [torch.empty_like(want[0]) for _ in range(3)]
         h_ws = torch.empty((want[0].numel(), dims["H"]), dtype=torch.bfloat16, device=device)
-        runs, res = {}, {}
+        runs, res, copies = {}, {}, {}
         for who, arity, fn in fns:
             runs[who] = joint_fwd_call(fn, arity, inputs, h_ws, outs)
             runs[who]()
             sync(device)
+            copies[who] = [o.clone() for o in outs]
             res[who] = dict(max_abs_err=max(
                 check_close(f"{who} K1 {tag} {n}", g, x, **K1_TOL)
                 for n, g, x in zip(("lse", "blank", "label"), outs, want)))
+            res[who]["bit_equal_to_this"] = all(
+                torch.equal(a, c) for a, c in zip(copies[who], copies["this"]))
         for who, _, _ in fns[1:]:
             times = {"other": [], "this": []}
             for turn in ("other", "this", "this", "other"):
                 times[turn].append(burst_ms(runs[who if turn == "other" else "this"]))
             res[who].update(ms=times["other"], this_ms=times["this"])
             log(f"K1 {tag} {dims} against {who}: both right (max abs err other "
-                f"{res[who]['max_abs_err']:.3e}, this {res['this']['max_abs_err']:.3e}); ms "
+                f"{res[who]['max_abs_err']:.3e}, this {res['this']['max_abs_err']:.3e}; "
+                f"bit-equal outputs: {res[who]['bit_equal_to_this']}); ms "
                 f"(other, this, this, other): {times['other'][0]:.4f}, "
                 f"{times['this'][0]:.4f}, {times['this'][1]:.4f}, {times['other'][1]:.4f}; "
                 f"this tree {min(times['other']) / max(times['this']):.2f}x faster")
@@ -2274,11 +2434,15 @@ def run_ranks(n: int, args: list, log_path: Path, timeout: int = RANK_TIMEOUT) -
                              + "\n".join(out.splitlines()[-40:]))
 
 
-def exchange_worker(n_grad: int, backend: str, hops: int = 200, reps: int = 5) -> None:
+def exchange_worker(n_grad: int, backend: str, tp: str | None = None, hops: int = 200,
+                    reps: int = 5) -> None:
     """One rank of ``exchange_phase`` (run under torch.distributed.run):
     gloo ranks share cuda:0, NCCL ranks take cuda:LOCAL_RANK; host-timed,
     each measurement ending on the host.  Ranks 0 and 1 pass the carry
-    rows; rank 0 prints one JSON line."""
+    rows; rank 0 prints one JSON line.  ``tp`` ("B,T,U1,H,C": the joint's
+    lattice, its width and encoder.out's input width) adds the
+    tensor-parallel joint's collectives over all the ranks as one model
+    group (``tp_dims``)."""
     import torch.distributed as dist
 
     from rnnt_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh, recv_row, send_row
@@ -2326,9 +2490,64 @@ def exchange_worker(n_grad: int, backend: str, hops: int = 200, reps: int = 5) -
     flat = torch.randn(n_grad, device=dev)
     out["grad_all_reduce_ms"] = timed(lambda: all_reduce_sum(flat), reps)
     out.update(grad_floats=n_grad, backend=backend, ranks=mesh.world)
+    if tp is not None:
+        out["tp"] = tp_collectives(mesh, dev, *map(int, tp.split(",")), reps=reps,
+                                   timed=timed)
     if rank == 0:
         print(json.dumps({"exchange": out}), flush=True)
     dist.destroy_process_group()
+
+
+def tp_collectives(mesh, dev, B: int, T: int, U1: int, H: int, C: int, reps: int,
+                   timed) -> dict:
+    """Milliseconds of each collective one tensor-parallel step makes over
+    its model group (``mesh`` with every rank on the model axis), at the
+    joint's lattice (B, T, U1), width H and encoder.out's input width C:
+    the lse merge (an all-reduce of the max, then of the (3, B, T, U1)
+    sums), the all-reduce of K2's denc and dpred (float32), encoder.out's
+    all-gather of (B, T, H / m) and the all-reduce of its input's gradient
+    (B, T, C), both in bf16; the predictor's are the same over U1 rows in
+    place of T (not timed)."""
+    import torch.distributed as dist
+
+    from rnnt_tpu_torch.parallel.mesh import all_gather_dim, all_reduce_max, all_reduce_sum
+
+    lse = torch.randn(B, T, U1, device=dev)
+    sums = torch.randn(3, B, T, U1, device=dev)
+    grads = torch.randn(B * (T + U1) * H, device=dev)
+    half = torch.randn(B, T, H // mesh.model, device=dev).to(torch.bfloat16)
+    x_grad = torch.randn(B, T, C, device=dev).to(torch.bfloat16)
+    out = dict(shape=f"B={B} T={T} U1={U1} H={H} C={C}", backend=dist.get_backend(),
+               lse_merge_ms=timed(lambda: (all_reduce_max(lse, mesh),
+                                           all_reduce_sum(sums, mesh.model_group)), reps),
+               denc_dpred_all_reduce_ms=timed(
+                   lambda: all_reduce_sum(grads, mesh.model_group), reps),
+               encoder_gather_ms=timed(lambda: all_gather_dim(half, 2, mesh), reps),
+               encoder_input_grad_ms=timed(
+                   lambda: all_reduce_sum(x_grad, mesh.model_group), reps))
+    out["step_ms"] = sum(v for k, v in out.items() if k.endswith("_ms"))
+    return out
+
+
+def tp_lattice(vocab: Path) -> dict:
+    """The tp case's joint as K1 and K2 take it, (B, T, U1, H, V): batch 4,
+    T' of its 10 s bucket (1024 frames), U1 of the 64-token bucket,
+    scaled_tp's H and V; C, encoder.out's input width, beside them."""
+    from rnnt_tpu_torch.config.config import (
+        apply_overrides, build_model_spec, load_config, resolve_config)
+    from rnnt_tpu_torch.models.encoder import encoder_out_len
+
+    cfg = apply_overrides(load_config(resolve_config(TP_CONFIG)),
+                          TP_OVERRIDES + [f"tokenizer.vocab_json={vocab}"])
+    spec = build_model_spec(cfg)
+    return dict(B=4, T=encoder_out_len(1024, spec.encoder), U1=65,
+                H=spec.joint.hidden_features, V=spec.joint.num_classes,
+                C=spec.encoder.epilogue_features)
+
+
+def tp_dims(vocab: Path) -> str:
+    """"B,T,U1,H,C" of the tp case's joint (``tp_lattice``)."""
+    return "{B},{T},{U1},{H},{C}".format(**tp_lattice(vocab))
 
 
 def flagship_params(train: dict) -> int:
@@ -2343,16 +2562,18 @@ def flagship_params(train: dict) -> int:
     return sum(p.numel() for p in rnnt_init(build_model_spec(cfg)).parameters())
 
 
-def exchange_phase(workdir: Path, n_grad: int, ranks: int = 2, backend: str = "gloo") -> dict:
+def exchange_phase(workdir: Path, n_grad: int, ranks: int = 2, backend: str = "gloo",
+                   tp: str | None = None) -> dict:
     """What the multi-rank layer's transport costs: one (4, U) carry row per
     hop between ranks 0 and 1 (U = 65 and 257; over gloo through pinned
     host memory), the (4,) log-likelihood all-reduce, and the flat gradient
     all-reduce of ``n_grad`` float32 values; gloo ranks share this card,
-    NCCL ranks take one card each."""
+    NCCL ranks take one card each.  ``tp`` (``tp_dims``) adds the
+    tensor-parallel joint's collectives (``tp_collectives``)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(ranks),
            "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
            str(REPO / "chip_smoke.py"), "--exchange", str(n_grad),
-           "--exchange-backend", backend]
+           "--exchange-backend", backend] + (["--exchange-tp", tp] if tp else [])
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
     out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, env=env,
@@ -2368,6 +2589,13 @@ def exchange_phase(workdir: Path, n_grad: int, ranks: int = 2, backend: str = "g
         f"{res['hop_ms_U65']:.4f} ms (4 x 65) / {res['hop_ms_U257']:.4f} ms (4 x 257), "
         f"the (4,) ll all-reduce {res['ll_all_reduce_ms']:.4f} ms, the flat gradient "
         f"all-reduce of {n_grad:,} floats {res['grad_all_reduce_ms']:.1f} ms")
+    if "tp" in res:
+        t = res["tp"]
+        log(f"{backend} tensor-parallel joint's collectives over {ranks} model ranks at "
+            f"{t['shape']}: lse merge {t['lse_merge_ms']:.3f} ms, denc + dpred all-reduce "
+            f"{t['denc_dpred_all_reduce_ms']:.3f} ms, encoder.out gather "
+            f"{t['encoder_gather_ms']:.3f} ms, its input gradient's all-reduce "
+            f"{t['encoder_input_grad_ms']:.3f} ms: {t['step_ms']:.3f} ms a step")
     return res
 
 
@@ -2427,67 +2655,117 @@ def _latest_run(exp: Path, model_name: str) -> Path:
     return max((exp / model_name).glob("run-*"), key=lambda p: int(p.name[4:]))
 
 
-def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1) -> dict:
+# The tensor-parallel case: scaled_tp at full width (202,905,216 parameters)
+# on its 2 model ranks, synthetic 10 s utterances; the batch is cut from the
+# YAML's 16 to 4 to bound the phase's time.  The batch-norm case:
+# base_convjs_fullcausal (batch norm everywhere) on 2 data ranks, 1 step.
+TP_CONFIG, BN_CONFIG = "scaled_tp", "base_convjs_fullcausal"
+TP_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_seconds=10",
+                "data.synthetic_size=16", "training.global_batch_size=4",
+                "training.log_steps=1", "training.eval_max_elements=4",
+                "tokenizer.spm_model=''"]
+# The pruned objective on the same mesh: 1 warmup step (the exact loss and
+# the simple joint on V slices), then 1 banded step (K1 and K2 on V slices of
+# the band's patches).
+TP_PRUNED = ["training.loss_impl=pruned", "training.pruned_warmup_steps=1"]
+REPLICA_LINE = re.compile(r"replicated parameters bit-equal on the (\d+) ranks at step (\d+)")
+TP_LINE = re.compile(r"tensor parallel over (\d+) model ranks: (\d+) tensors sharded "
+                     r"\(([\d,]+) parameters on each rank\); each rank holds ([\d,]+)")
+
+
+def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
+                     cases=("tshard", "data_parallel", "tp", "tp_pruned", "bn")) -> dict:
     """The multi-rank layer through ``torch.distributed.run`` and cli.train,
-    full-width ``base_convjs`` with the YAML's data settings (corpus cached
-    on each rank's card, ``augment_device: full``: K5 on every rank), 2
-    steps each, against the same config on 1 rank in this process.  On one
+    each run against the same config on 1 rank in this process.  On one
     card 2 ranks share it over gloo (``--device cuda:0 --dist-backend
     gloo``); with ``cards`` > 1, one rank per card over NCCL (``--device
     cuda``, each rank on ``cuda:LOCAL_RANK``).
 
-    * T-sharded: ``lattice_shard_t=true``, ``mesh.model=2`` and
+    * ``tshard``: full-width ``base_convjs`` with the YAML's data settings
+      (corpus cached on each rank's card, ``augment_device: full``: K5 on
+      every rank), 2 steps, ``lattice_shard_t=true``, ``mesh.model=2`` and
       ``mesh.data=cards // 2`` (at least 1), with ``loss_impl=auto`` (the
       T-sharded loss takes the chunked joint whatever the loss_impl, as in
       the reference, while rank 0's eval scores the exact NLL through K1 +
       K3), against 1 rank with ``loss_impl=chunked`` (the chunked joint, K3
       and K4 on the whole lattice): K6 and K7 once per step on each rank,
       K3 and K4 never;
-    * data-parallel flagship: ``mesh.data`` = the ranks, the pruned loss
-      with 1 warmup step and 1 banded step, against 1 rank: K1-K5 on each
-      rank in each step.
+    * ``data_parallel``: the same flagship with ``mesh.data`` = the ranks,
+      the pruned loss with 1 warmup step and 1 banded step: K1-K5 on each
+      rank in each step;
+    * ``tp``: full-width ``scaled_tp`` (TP_OVERRIDES, its own data
+      settings: the host recipe) on ``mesh.data=1 mesh.model=2``, 2 steps:
+      each rank holds V / 2 of the joint and H / 2 of ``encoder.out`` and
+      ``predictor.linear``; K1-K4 once per step on each rank (K1 and K2 on
+      the rank's slice), K5-K7 never; rank 0's eval on the gathered model;
+      every rank's replicated parameters bit-equal at the final save (the
+      line cli.train prints after comparing their digests);
+    * ``tp_pruned``: the same with the pruned loss (TP_PRUNED), 1 warmup
+      and 1 banded step: K1 and K2 once per step on each rank, K3 and K4
+      in each;
+    * ``bn``: full-width ``base_convjs_fullcausal`` (batch norm) on
+      ``mesh.data`` = the ranks, 1 step: statistics over the data group.
 
     Each step's loss and gradient norm must agree within TSHARD_RTOL /
     DP_RTOL; metrics.jsonl (rank 0's) is read once per run."""
     from rnnt_tpu_torch.cli import train as cli_train
     from rnnt_tpu_torch.config.config import load_config, resolve_config
 
-    model_name = load_config(resolve_config(train["config"])).model_name
     exp = workdir / "exp_ranks"
-    base = ["--config", train["config"], "--output-base", str(exp), "--max-steps", "2"]
-    for o in train["overrides"] + [f"tokenizer.vocab_json={train['vocab']}"]:
-        base += ["--set", o]
     on_card = torch.device(device).type == "cuda"
     n = max(cards, 2)
     ranks = (["--device", "cpu"] if not on_card
              else ["--device", "cuda:0", "--dist-backend", "gloo"] if cards == 1
              else ["--device", "cuda"])
+    flagship = (train["config"], train["overrides"])
+    tp = train.get("tp", (TP_CONFIG, TP_OVERRIDES))
+    bn = train.get("bn", (BN_CONFIG, TP_OVERRIDES))
+    kernels_once = dict(joint_fwd=1, joint_bwd=1, alpha_fwd=1, beta_bwd=1, window_gather=0,
+                        alpha_chain=0, beta_chain=0)
+    table = {
+        "tshard": (flagship, 2,
+                   ["training.loss_impl=auto", "training.lattice_shard_t=true",
+                    "mesh.model=2", f"mesh.data={n // 2}"],
+                   ["training.loss_impl=chunked"], TSHARD_RTOL,
+                   dict(alpha_chain=1, beta_chain=1, alpha_fwd=0, beta_bwd=0, joint_fwd=0,
+                        joint_bwd=0, window_gather=4)),
+        "data_parallel": (flagship, 2, ["training.pruned_warmup_steps=1", f"mesh.data={n}"],
+                          ["training.pruned_warmup_steps=1"], DP_RTOL,
+                          dict(joint_fwd=None, joint_bwd=None, alpha_fwd=None, beta_bwd=None,
+                               window_gather=4, alpha_chain=0, beta_chain=0)),
+        "tp": (tp, 2, [f"mesh.data={n // 2}", "mesh.model=2"],
+               ["mesh.data=1", "mesh.model=1"], DP_RTOL, kernels_once),
+        "tp_pruned": ((tp[0], tp[1] + TP_PRUNED), 2, [f"mesh.data={n // 2}", "mesh.model=2"],
+                      ["mesh.data=1", "mesh.model=1"], DP_RTOL,
+                      dict(kernels_once, alpha_fwd=None, beta_bwd=None)),
+        "bn": (bn, 1, [f"mesh.data={n}", "mesh.model=1"], ["mesh.data=1", "mesh.model=1"],
+               DP_RTOL, kernels_once),
+    }
     if on_card:
         torch.cuda.empty_cache()
     out = {}
-    for key, many, one, rtol, expect in (
-            ("tshard",
-             ["--set", "training.loss_impl=auto", "--set", "training.lattice_shard_t=true",
-              "--set", "mesh.model=2", "--set", f"mesh.data={n // 2}"],
-             ["--set", "training.loss_impl=chunked"], TSHARD_RTOL,
-             dict(alpha_chain=1, beta_chain=1, alpha_fwd=0, beta_bwd=0, joint_fwd=0,
-                  joint_bwd=0, window_gather=4)),
-            ("data_parallel",
-             ["--set", "training.pruned_warmup_steps=1", "--set", f"mesh.data={n}"],
-             ["--set", "training.pruned_warmup_steps=1"], DP_RTOL,
-             dict(joint_fwd=None, joint_bwd=None, alpha_fwd=None, beta_bwd=None,
-                  window_gather=4, alpha_chain=0, beta_chain=0))):
+    for key in cases:
+        (config, overrides), steps, many, one, rtol, expect = table[key]
+        model_name = load_config(resolve_config(config)).model_name
+        base = ["--config", config, "--output-base", str(exp), "--max-steps", str(steps)]
+        for o in overrides + [f"tokenizer.vocab_json={train['vocab']}"]:
+            base += ["--set", o]
         t = time.time()
-        run_ranks(n, base + many + ranks, workdir / f"{key}_ranks.log")
+        log_path = workdir / f"{key}_ranks.log"
+        run_ranks(n, base + [x for o in many for x in ("--set", o)] + ranks, log_path)
         secs = time.time() - t
         run2 = _latest_run(exp, model_name)
         steps2 = _read_steps(run2)
         records = [json.loads(x) for x in (run2 / "metrics.jsonl").read_text().splitlines()]
         evals = [r for r in records if "wer/eval" in r]
+        t = time.time()
         with contextlib.redirect_stdout(io.StringIO()):
-            cli_train.main(base + one + ["--device", str(device)])
+            cli_train.main(base + [x for o in one for x in ("--set", o)]
+                           + ["--device", str(device)])
+        secs1 = time.time() - t
         steps1 = _read_steps(_latest_run(exp, model_name))
-        if [s["step"] for s in steps2] != [1, 2] or [s["step"] for s in steps1] != [1, 2]:
+        want_steps = list(range(1, steps + 1))
+        if [s["step"] for s in steps2] != want_steps or [s["step"] for s in steps1] != want_steps:
             raise AssertionError(f"{key}: steps {steps2} / {steps1}")
         gaps = []
         for s2, s1 in zip(steps2, steps1):
@@ -2495,9 +2773,9 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1) -> dict
             gaps.append(gap)
             log(f"  {key} step {s2['step']}: {n} ranks loss {s2['loss']:.6f} grad norm "
                 f"{s2['grad_norm']:.6f} ({s2['seconds']:.3f} s, {s2['audio_s_per_s']:.2f} "
-                f"audio-s/s); 1 rank {s1['loss']:.6f} / {s1['grad_norm']:.6f}; relative "
-                f"gaps {gap['loss']:.2e} / {gap['grad_norm']:.2e}; launches per rank "
-                f"{s2['by_rank']}")
+                f"audio-s/s); 1 rank {s1['loss']:.6f} / {s1['grad_norm']:.6f} "
+                f"({s1['seconds']:.3f} s); relative gaps {gap['loss']:.2e} / "
+                f"{gap['grad_norm']:.2e}; launches per rank {s2['by_rank']}")
             bad = [k for k in gap if not gap[k] <= rtol[k]]
             if bad or not (math.isfinite(s2["loss"]) and math.isfinite(s2["grad_norm"])):
                 raise AssertionError(f"{key} step {s2['step']}: {n} ranks {s2} vs 1 rank {s1}, "
@@ -2511,15 +2789,34 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1) -> dict
                                          f"{'some' if want is None else want} on each")
         if len(evals) != 1 or not math.isfinite(evals[0]["wer/eval"]):
             raise AssertionError(f"{key}: rank 0's evals {evals}")
-        ev = {k.split("/", 1)[1]: n for k, n in evals[0].items()
+        ev = {k.split("/", 1)[1]: c for k, c in evals[0].items()
               if k.startswith("eval_launches/")}
         if on_card and key == "tshard" and not (ev.get("joint_fwd") and ev.get("alpha_fwd")):
             raise AssertionError(f"tshard: rank 0's eval launched {ev}, expected K1 and K3")
-        log(f"{key}: {n} ranks in {secs:.1f} s (start-up, cache, 2 steps, rank 0's eval); "
-            f"metrics.jsonl steps {[s['step'] for s in steps2]}, rank 0's eval WER "
-            f"{evals[0]['wer/eval']:.4f} with launches {ev}")
+        log(f"{key}: {n} ranks in {secs:.1f} s, 1 rank in {secs1:.1f} s (start-up, cache, "
+            f"{steps} step(s), rank 0's eval); metrics.jsonl steps "
+            f"{[s['step'] for s in steps2]}, rank 0's eval WER {evals[0]['wer/eval']:.4f} "
+            f"with launches {ev}")
         out[key] = dict(steps2=steps2, steps1=steps1, gaps=gaps, seconds=secs,
-                        eval_launches=ev)
+                        seconds_one_rank=secs1, eval_launches=ev)
+        if key.startswith("tp"):
+            said = log_path.read_text()
+            if not any(int(r[0]) == n and int(r[1]) == steps
+                       for r in REPLICA_LINE.findall(said)):
+                raise AssertionError(f"{key}: no line saying the replicated parameters are "
+                                     f"bit-equal on the {n} ranks at step {steps} in "
+                                     f"{log_path}")
+            log(f"{key}: replicated parameters bit-equal on the {n} ranks after {steps} steps")
+        if key == "tp":
+            m = TP_LINE.search(said)
+            if m is None or int(m.group(1)) != 2:
+                raise AssertionError(f"tp: no line saying what each rank holds in {log_path}")
+            out[key]["sharded"] = dict(tensors=int(m.group(2)),
+                                       sharded_per_rank=int(m.group(3).replace(",", "")),
+                                       held_per_rank=int(m.group(4).replace(",", "")))
+            log(f"tp: each rank holds {out[key]['sharded']['held_per_rank']:,} parameters, "
+                f"{out[key]['sharded']['sharded_per_rank']:,} of them its shards of "
+                f"{m.group(2)} tensors")
     return out
 
 
@@ -2600,13 +2897,14 @@ class _RoundGradBF16(torch.autograd.Function):
 
 
 def joint_outputs_reference(enc, pred, w, b, labels, blank: int,
-                            grad_clamp: float = -1.0):
+                            grad_clamp: float = -1.0, mesh=None):
     """``fused_joint_outputs`` in plain PyTorch under autograd, rounded where
     K1 and K2 round and nowhere else: the bf16 sum before tanh and h in the
     forward, dl (the logits' cotangent) in bf16 for the dh and dW products;
-    dh, 1 - h^2 (of the rounded h) and every sum in float32."""
-    if grad_clamp > 0:
-        raise ValueError("the reference joint takes no gradient clamp")
+    dh, 1 - h^2 (of the rounded h) and every sum in float32.  A whole
+    joint only (no mesh)."""
+    if grad_clamp > 0 or mesh is not None:
+        raise ValueError("the reference joint takes no gradient clamp and no mesh")
     s = _RoundBF16.apply(enc.float()[:, :, None, :] + pred.float()[:, None, :, :])
     h = _TanhBF16.apply(s)
     logits = _RoundGradBF16.apply(h @ w.float()) + b.float()
@@ -2922,24 +3220,27 @@ def profile_train_phase(device, train: dict, out_dir: Path, steps: int = 3,
                  kind=kind, per=steps, per_what="step")
 
 
-def multi_card_main(cards: int, smi: str) -> None:
+def multi_card_main(cards: int, smi: str, cases: tuple | None = None) -> None:
     """``--cards N``: the multi-rank layer across N cards of this machine,
-    one rank per card over NCCL; prints a ``{"multi_card": ...}`` line."""
+    one rank per card over NCCL; prints a ``{"multi_card": ...}`` line.
+    With ``cases``, only those multi-rank cases run (no kernel checks on
+    the other cards, no transport costs)."""
     if torch.cuda.device_count() < cards or cards < 2:
         sys.exit(f"chip_smoke: --cards {cards} needs 2 or more cards, this machine has "
                  f"{torch.cuda.device_count()}")
     from rnnt_tpu_torch.data.dataset import synthetic_piece_table
 
     t0 = time.time()
-    for card in range(1, cards):
+    for card in range(1, cards) if cases is None else ():
         other_card_phase(card)
     with tempfile.TemporaryDirectory() as tmp:
         vocab = Path(tmp) / "train_vocab.json"
         vocab.write_text(json.dumps(synthetic_piece_table()))
         train = dict(config="base_convjs", overrides=list(TRAIN_OVERRIDES), vocab=vocab)
-        ranks = multi_rank_phase(Path(tmp), torch.device("cuda"), train, cards=cards)
-        exchange = exchange_phase(Path(tmp), flagship_params(train), ranks=cards,
-                                  backend="nccl")
+        ranks = multi_rank_phase(Path(tmp), torch.device("cuda"), train, cards=cards,
+                                 **({} if cases is None else {"cases": cases}))
+        exchange = (exchange_phase(Path(tmp), flagship_params(train), ranks=cards,
+                                   backend="nccl") if cases is None else None)
     log(f"total {time.time() - t0:.1f} s")
     print(smi.strip())
     print(json.dumps({"multi_card": dict(
@@ -2955,11 +3256,15 @@ def main() -> None:
     ap.add_argument("--exchange", metavar="N_GRAD", type=int, default=None,
                     help=argparse.SUPPRESS)  # one rank of exchange_phase
     ap.add_argument("--exchange-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--exchange-tp", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--cards", type=int, default=None,
                     help="instead of the one-card run: the multi-rank layer on N cards "
                          "of this machine, one rank per card over NCCL (K1-K7 on each "
                          "other card, the T-sharded and data-parallel steps against 1 "
                          "rank, NCCL's transport costs)")
+    ap.add_argument("--cases", default=None,
+                    help="with --cards: only these multi-rank cases, comma-separated "
+                         "(tshard, data_parallel, tp, tp_pruned, bn)")
     ap.add_argument("--parent-lattice", metavar="DIR", type=Path, default=None,
                     help="also build alpha_fwd.cu, beta_bwd.cu, alpha_chain.cu and "
                          "beta_chain.cu of another tree from DIR (with its headers) and "
@@ -2974,7 +3279,7 @@ def main() -> None:
     args = ap.parse_args()
     if args.exchange is not None:
         sys.path.insert(0, str(REPO))
-        return exchange_worker(args.exchange, args.exchange_backend)
+        return exchange_worker(args.exchange, args.exchange_backend, args.exchange_tp)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs an NVIDIA card")
     if not (REPO / "rnnt_tpu_torch" / "csrc").is_dir():
@@ -2983,6 +3288,7 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     from rnnt_tpu_torch.config.config import (
         build_featurizer_spec, load_config, resolve_config)
+    from rnnt_tpu_torch.data.dataset import synthetic_piece_table
     from rnnt_tpu_torch.ops.kernels import build_all
     from rnnt_tpu_torch.ops.lattice_pallas import K3, K4, K6, K7
     from rnnt_tpu_torch.ops.transducer_pallas import K1, K2
@@ -3007,12 +3313,21 @@ def main() -> None:
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {k.name}: {line.strip()}")
     if args.cards is not None:
-        return multi_card_main(args.cards, smi)
+        return multi_card_main(args.cards, smi,
+                               tuple(args.cases.split(",")) if args.cases else None)
 
     # The flagship bucket the synthetic 10 s utterances land in: 1024 frames.
     L = build_featurizer_spec(load_config(resolve_config("base_convjs"))).samples_for_frames(1024)
     measured = kernel_phase(device)
     measured.update(train_kernel_phase(device))
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "tp_vocab.json"
+        vocab.write_text(json.dumps(synthetic_piece_table()))
+        tp_joint = {k: v for k, v in tp_lattice(vocab).items() if k != "C"}
+    # scaled_tp's joint on its 2 model ranks: the kernel phase's wide shape,
+    # the banded loss's patches at H 2048, and the tp case's own lattice.
+    slices = slice_phase(device, (("wide", K1_WIDE), ("banded", dict(BANDED_SHAPE, H=2048)),
+                                  ("tp", tp_joint)))
     chain = chain_kernel_phase(device)
     if args.parent_lattice is not None:
         other = parent_lattice_phase(device, args.parent_lattice.resolve())
@@ -3041,7 +3356,8 @@ def main() -> None:
         train = train_phase(Path(tmp), device, kernels)
         grad_phase(device, kernels, train)
         ranks = multi_rank_phase(Path(tmp), device, train)
-        ranks["exchange"] = exchange_phase(Path(tmp), flagship_params(train))
+        ranks["exchange"] = exchange_phase(Path(tmp), flagship_params(train),
+                                           tp=tp_dims(train["vocab"]))
         if args.profile is not None:
             profile_train_phase(device, train, args.profile)
             profile_train_phase(device, train, args.profile, device_augment="full")
@@ -3073,6 +3389,21 @@ def main() -> None:
                           + (f"; {m['gemm_note']}" if "gemm_note" in m else "")),
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
+    for e, k in zip(entries[:2], ("k1", "k2")):
+        e["slice_cases"] = {tag: dict(
+            shape=c["shape"], parts=c["parts"],
+            slices=[dict(v0=m["v0"], **m[k]) for m in c["slices"]],
+            merged=(dict(max_abs_err=c["k1_merged_max_abs_err"]) if k == "k1"
+                    else dict(rel_l2=c["k2_merged_rel_l2"]))) for tag, c in slices.items()}
+        for case in ("tp", "tp_pruned"):
+            e["launches_per_step"][f"{case} (per rank)"] = [
+                st["by_rank"][e["name"].split()[1]] for st in ranks[case]["steps2"]]
+    for e in entries[2:4]:
+        e["tp_lattice_case"] = dict(shape=slices["tp"]["lattice"]["shape"], max_abs_err=(
+            slices["tp"]["lattice"][f"{e['name'][:2].lower()}_max_abs_err"]))
+        for case in ("tp", "tp_pruned"):
+            e["launches_per_step"][f"{case} (per rank)"] = [
+                st["by_rank"][e["name"].split()[1]] for st in ranks[case]["steps2"]]
     rs = decode["rescore"]
     next(e for e in entries if e["name"].startswith("K3"))["rescore_case"] = dict(
         shape="B*C={} T={} U1={}".format(*rs["lattice"]), device_ms=rs["k3_device_ms"],
@@ -3106,8 +3437,12 @@ def main() -> None:
                                      for m in c["other_tree"]] for tag, c in chain.items()}}
                if "other_tree" in ev else {})))
     multi = {key: dict(gaps=r["gaps"], seconds=r["seconds"], eval_launches=r["eval_launches"],
+                       seconds_one_rank=r["seconds_one_rank"],
                        steps=[{k: s[k] for k in ("step", "loss", "grad_norm", "seconds")}
-                              for s in r["steps2"]])
+                              for s in r["steps2"]],
+                       steps_one_rank=[{k: s[k] for k in ("step", "loss", "grad_norm",
+                                                          "seconds")} for s in r["steps1"]],
+                       **({"sharded": r["sharded"]} if "sharded" in r else {}))
              for key, r in ranks.items() if key != "exchange"}
     multi["exchange"] = ranks["exchange"]
     log(f"total {time.time() - t0:.1f} s")

@@ -12,6 +12,14 @@
 // dl enters both products in bf16 (the TPU kernel casts it to W's dtype),
 // db sums it in float32; all products accumulate in float32.
 //
+// Vocabulary slice, as in K1: W and bias may hold the columns of global ids
+// [v0, v0 + V); a label or blank id outside them adds nothing to dl, and
+// lse is the merged lse of the whole vocabulary (parallel/partition.py), so
+// p_r is the global softmax on this slice's columns.  denc and dpred are
+// then this slice's shares (the caller sums them over the slices); dW and
+// db are the slice's own columns.  v0 = 0 over the whole V is the unsliced
+// kernel.
+//
 // What bounds it on an H100: operations.  Three products of 2*N*H*V flops,
 // N = B*T*U1: 8.2e11 flop at (4, 504, 65, 1024, 1024), 0.83 ms at 989
 // TFLOP/s bf16; 2.1e11 at the banded (128, 16, 16) patches, 0.21 ms.
@@ -97,7 +105,7 @@ struct DlPass {
     bf16* dl;
     float* db;
     long long n_rows;
-    int T, U1, V, Vp, blank, k_blocks, n_nt;
+    int T, U1, V, Vp, blank, v0, k_blocks, n_nt;  // blank: a local column
     float clamp;
   };
   struct Tile {
@@ -143,7 +151,8 @@ struct DlPass {
       gl[i] = ok ? p.g_lse[rw] : 0.f;
       gb[i] = ok ? p.g_blank[rw] : 0.f;
       ga[i] = ok ? p.g_label[rw] : 0.f;
-      lab[i] = ok ? p.labels[rw / (p.T * p.U1) * p.U1 + rw % p.U1] : -1;
+      // The local column; one outside [0, V) matches no column below.
+      lab[i] = ok ? p.labels[rw / (p.T * p.U1) * p.U1 + rw % p.U1] - p.v0 : -1;
     }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
@@ -330,20 +339,22 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // (B, U1) int32; lse, g_blank, g_label, g_lse (B, T, U1) float32; h_ws
 // (B*T*U1, Hp) and dl_ws (B*T*U1, Vp) bf16 workspaces.  denc (B, T, Hp),
 // dpred (B, U1, Hp), dw (Hp, Vp), db (V,): float32, ZEROED by the caller
-// (the passes add into them).  grad_clamp <= 0: no clamp.  Every bf16
-// pointer 16-byte aligned.  Returns the first CUDA error of the launches,
-// or cudaErrorInvalidValue for a layout the tensor maps cannot take.
+// (the passes add into them).  blank and the labels are global ids; W and
+// bias hold the columns of ids [v0, v0 + V).  grad_clamp <= 0: no clamp.
+// Every bf16 pointer 16-byte aligned.  Returns the first CUDA error of the
+// launches, or cudaErrorInvalidValue for a layout the tensor maps cannot
+// take.
 extern "C" int rnnt_joint_bwd(const void* enc, const void* pred, const void* w,
                               const void* bias, const void* labels, const void* lse,
                               const void* g_blank, const void* g_label,
                               const void* g_lse, void* h_ws, void* dl_ws, void* denc,
                               void* dpred, void* dw, void* db, int B, int T, int U1,
-                              int Hp, int V, int Vp, int blank, float grad_clamp,
+                              int Hp, int V, int Vp, int blank, int v0, float grad_clamp,
                               void* stream) {
   const long long n_rows = (long long)B * T * U1;
   if (n_rows <= 0 || V <= 0 || Hp <= 0) return 0;
   // TMA coordinates and the grids are 32-bit.
-  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || !aligned16(enc) ||
+  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || v0 < 0 || !aligned16(enc) ||
       !aligned16(pred) ||
       !aligned16(w) || !aligned16(h_ws) || !aligned16(dl_ws))
     return (int)cudaErrorInvalidValue;
@@ -384,7 +395,7 @@ extern "C" int rnnt_joint_bwd(const void* enc, const void* pred, const void* w,
   DlPass::Params dlp{static_cast<const float*>(bias), static_cast<const int*>(labels),
                      static_cast<const float*>(lse), static_cast<const float*>(g_blank),
                      static_cast<const float*>(g_label), static_cast<const float*>(g_lse),
-                     dl, static_cast<float*>(db), n_rows, T, U1, V, Vp, blank,
+                     dl, static_cast<float*>(db), n_rows, T, U1, V, Vp, blank - v0, v0,
                      (Hp + BK - 1) / BK, n_nt, grad_clamp};
   err = sm90::launch_gemm<DlPass>(map_h, map_w, dlp,
                                   dim3((unsigned)((n_rows + BM - 1) / BM * n_nt)), s);

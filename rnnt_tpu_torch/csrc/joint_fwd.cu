@@ -9,8 +9,15 @@
 //   label[b, t, u] = logits[labels[b, u]]
 // The (B, T, U1, V) logits never reach device memory: the outputs are three
 // (B, T, U1) float32 arrays.  The label column is read from int32 ids and
-// the blank index (the TPU kernel's one-hot operands exist only for its
-// vocabulary sharding; the function is the same).
+// the blank index where the TPU kernel takes one-hot operands.
+//
+// Vocabulary slice.  W and bias may be a tensor-parallel rank's V columns
+// of a wider vocabulary, starting at global id v0: a label or blank id
+// counts in column id - v0 when that lies in [0, V), and a slice that owns
+// neither writes 0 for that logit (the TPU kernel's V-sharded one-hots give
+// the same zeros).  The lse is then the slice's; the caller merges the
+// slices' outputs (parallel/partition.py).  v0 = 0 over the whole V is the
+// unsliced kernel, bit for bit.
 //
 // What bounds it on an H100: operations.  2*B*T*U1*H*V flops: 2.75e11 at
 // (4, 504, 65, 1024, 1024), 0.28 ms at 989 TFLOP/s dense bf16, against
@@ -82,7 +89,7 @@ struct LsePass {
     const int* labels;
     float *lse, *blank_out, *label_out;
     long long n_rows;
-    int T, U1, V, blank, k_blocks, n_vt;
+    int T, U1, V, blank, v0, k_blocks, n_vt;  // blank: a local column or -1
   };
   // Block b walks the V tiles of row tile b.
   struct Tile {
@@ -92,7 +99,7 @@ struct LsePass {
   // The thread's two rows: the running max over the V tiles so far (the
   // same in the quad's 4 lanes), its share of the sum of exp(x - max),
   // the blank and label logits where its columns held them (0 elsewhere),
-  // and the row's label id (-1 past the lattice).
+  // and the row's label column (-1 past the lattice or outside the slice).
   struct State {
     float m[2], s[2], blank[2], label[2];
     int lab[2];
@@ -131,7 +138,8 @@ struct LsePass {
       st.lab[r] = -1;
       if (row < p.n_rows) {
         const int rw = (int)row;  // the host keeps rows below 2^28
-        st.lab[r] = p.labels[rw / (p.T * p.U1) * p.U1 + rw % p.U1];
+        const int col = p.labels[rw / (p.T * p.U1) * p.U1 + rw % p.U1] - p.v0;
+        st.lab[r] = col >= 0 && col < p.V ? col : -1;
       }
     }
   }
@@ -231,18 +239,21 @@ bool aligned(const void* p, uintptr_t bytes) {
 // the model's H and V (Hp, Vp multiples of 8), 16-byte aligned; bias (V,)
 // float32, 8-byte aligned; labels (B, U1) int32; h_ws (B*T*U1, Hp) bf16
 // workspace, 16-byte aligned; lse, blank_out, label_out (B, T, U1)
-// float32.  Returns the first CUDA error of the two launches, or
-// cudaErrorInvalidValue for a layout or size the kernels do not take.
+// float32.  blank and the labels are global ids; W and bias hold the
+// columns of ids [v0, v0 + V).  Returns the first CUDA error of the two
+// launches, or cudaErrorInvalidValue for a layout or size the kernels do
+// not take.
 extern "C" int rnnt_joint_fwd(const void* enc, const void* pred, const void* w,
                               const void* bias, const void* labels, void* h_ws, void* lse,
                               void* blank_out, void* label_out, int B, int T, int U1,
-                              int Hp, int V, int Vp, int blank, void* stream) {
+                              int Hp, int V, int Vp, int blank, int v0, void* stream) {
   const long long n_rows = (long long)B * T * U1;
   if (n_rows <= 0 || V <= 0 || Hp <= 0) return 0;
-  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || blank < 0 ||
-      blank >= V || !aligned(enc, 16) || !aligned(pred, 16) || !aligned(w, 16) ||
-      !aligned(h_ws, 16) || !aligned(bias, 8))
+  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || blank < 0 || v0 < 0 ||
+      !aligned(enc, 16) || !aligned(pred, 16) || !aligned(w, 16) || !aligned(h_ws, 16) ||
+      !aligned(bias, 8))
     return (int)cudaErrorInvalidValue;
+  const int blank_col = blank - v0 >= 0 && blank - v0 < V ? blank - v0 : -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* h = static_cast<bf16*>(h_ws);
 
@@ -263,7 +274,7 @@ extern "C" int rnnt_joint_fwd(const void* enc, const void* pred, const void* w,
     return (int)cudaErrorInvalidValue;
   LsePass::Params prm{static_cast<const float*>(bias), static_cast<const int*>(labels),
                       static_cast<float*>(lse), static_cast<float*>(blank_out),
-                      static_cast<float*>(label_out), n_rows, T, U1, V, blank,
+                      static_cast<float*>(label_out), n_rows, T, U1, V, blank_col, v0,
                       (Hp + BK - 1) / BK, (V + LsePass::BN - 1) / LsePass::BN};
   return (int)sm90::launch_gemm<LsePass>(map_h, map_w, prm,
                                          dim3((unsigned)((n_rows + BM - 1) / BM)), s);

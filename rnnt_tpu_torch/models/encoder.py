@@ -12,6 +12,11 @@ not 512).  In training, dropout follows each GELU of a Jasper block (the
 JAX package's uint16 threshold mask, ``dropout``) and batch norms use
 batch statistics, putting their new running statistics into ``new_state``.
 
+On a tensor-parallel mesh (``parallel/mesh.shard_params``) ``out`` holds
+this rank's columns of H and runs column-parallel (``tp_mesh`` set): its
+input's gradient is summed over the model group and its output gathered
+whole, so the encoder returns (B, T', H) on every model rank.
+
 Module attribute names mirror the JAX params pytree, so
 ``compat/jax_params.py`` maps ``encoder/blocks/0/convs/1/w`` to
 ``encoder.blocks.0.convs.1.w`` one to one.
@@ -39,6 +44,7 @@ from rnnt_tpu_torch.ops.causal_conv import (
     streaming_init_state,
 )
 from rnnt_tpu_torch.ops.norm import Norm
+from rnnt_tpu_torch.parallel.mesh import column_parallel
 from rnnt_tpu_torch.utils import batch_draw
 
 
@@ -158,6 +164,8 @@ class JasperBlock(nn.Module):
 class Encoder(nn.Module):
     """(B, T, input_features) -> (B, T', output_features)."""
 
+    tp_mesh = None  # the mesh when ``out`` holds this rank's columns
+
     def __init__(self, spec: EncoderSpec, generator: torch.Generator):
         super().__init__()
         self.spec = spec
@@ -179,7 +187,7 @@ class Encoder(nn.Module):
             x = block(x, training, generator, new_state)
         x = _gelu(self.epilogue["norm"](self.epilogue["conv"](x), training,
                                         new_state))
-        return self.out(x)
+        return column_parallel(self.out, x, self.tp_mesh)
 
     def streaming(self, x: torch.Tensor, conv_states: tuple):
         """One chunk x (B, T, input_features) -> (y (B, T', output_features),

@@ -6,6 +6,11 @@ linear layer to ``num_classes``; blank is the last class.  The factored
 ``simple`` heads of the pruned loss (ops/transducer_pruned.py) are
 carried when present.
 
+On a tensor-parallel mesh (``parallel/mesh.shard_params``) ``out`` and the
+simple heads hold this rank's columns of V (``tp_mesh`` set); the losses
+then run the V-sharded joint of ``parallel/partition.py``.  Decoding and
+``joint_apply`` take a whole joint.
+
 ``joint_apply`` materializes (B, T, U, V) logits and is for tests only;
 the eval loss runs the joint chunk-wise (ops/transducer.py) or fused in
 the K1 kernel (ops/transducer_pallas.py).
@@ -34,6 +39,8 @@ class JointSpec:
 
 
 class Joint(nn.Module):
+    tp_mesh = None  # the mesh when ``out`` and the heads hold this rank's V
+
     def __init__(self, spec: JointSpec, generator: torch.Generator,
                  simple: bool = False):
         super().__init__()

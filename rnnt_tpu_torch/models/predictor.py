@@ -17,6 +17,11 @@ Port of ``rnnt_tpu/models/predictor.py``.
   ``lstm_layer_norm_epsilon``.  In training, dropout at ``lstm_dropout``
   follows every layer, the last included.
 
+On a tensor-parallel mesh (``parallel/mesh.shard_params``) either one's
+``linear`` holds this rank's columns of the output and runs
+column-parallel (``tp_mesh`` set), the whole output gathered before
+``output_ln``.
+
 ``predictor_apply`` is the full-sequence features of either (the training
 lattice and rescoring); decode steps them through
 ``decode/greedy.make_predictor_stepper``.
@@ -33,6 +38,7 @@ from torch import nn
 from rnnt_tpu_torch.models.encoder import dropout
 from rnnt_tpu_torch.ops.causal_conv import CausalConv, ConvSpec, Linear
 from rnnt_tpu_torch.ops.norm import LayerNorm
+from rnnt_tpu_torch.parallel.mesh import column_parallel
 
 
 @dataclass(frozen=True)
@@ -73,6 +79,8 @@ class LSTMPredictorSpec:
 class ConvPredictor(nn.Module):
     """tokens (B, U) int -> features (B, U, output_dim)."""
 
+    tp_mesh = None  # the mesh when ``linear`` holds this rank's columns
+
     def __init__(self, spec: ConvPredictorSpec, generator: torch.Generator):
         super().__init__()
         self.spec = spec
@@ -92,7 +100,7 @@ class ConvPredictor(nn.Module):
                     generator)
         x = dropout(F.gelu(self.conv2(x), approximate="none"), rate, training,
                     generator)
-        return self.output_ln(self.linear(x))
+        return self.output_ln(column_parallel(self.linear, x, self.tp_mesh))
 
 
 class LSTMLayer(nn.Module):
@@ -131,6 +139,8 @@ class LSTMPredictor(nn.Module):
     """tokens (B, U) int [+ state] -> (features (B, U, output_dim), state);
     the state is a tuple of {"h", "c"} (B, lstm_hidden_dim) per layer."""
 
+    tp_mesh = None  # as ConvPredictor's
+
     def __init__(self, spec: LSTMPredictorSpec, generator: torch.Generator):
         super().__init__()
         self.spec = spec
@@ -161,7 +171,8 @@ class LSTMPredictor(nn.Module):
             x, s = layer(x, s)
             x = dropout(x, self.spec.lstm_dropout, training, generator)
             new_state.append(s)
-        return self.output_ln(self.linear(x)), tuple(new_state)
+        return (self.output_ln(column_parallel(self.linear, x, self.tp_mesh)),
+                tuple(new_state))
 
 
 def make_predictor(spec, generator: torch.Generator) -> nn.Module:

@@ -47,7 +47,11 @@ class RNNTSpec:
 class RNNT(nn.Module):
     """Seeded init with the ``*_init`` distributions of the JAX package:
     Kaiming-uniform convs and linears, normal embedding, unit norms.
-    Parameters are created float32 on the CPU; move with ``.to(device)``."""
+    Parameters are created float32 on the CPU; move with ``.to(device)``.
+    ``tp_layout`` is {parameter name: sharded dim} once
+    ``parallel/mesh.shard_params`` has cut it to a rank's shards."""
+
+    tp_layout: dict = {}
 
     def __init__(self, spec: RNNTSpec, generator: torch.Generator,
                  simple: bool | None = None):

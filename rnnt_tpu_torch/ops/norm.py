@@ -15,12 +15,27 @@ commits them after the update.
 Instance norms take their statistics over the whole padded time axis,
 padding included — the JAX package does the same and the port matches it
 rather than masking.
+
+On several data ranks (``batch_stats_over(group)``, which the train step
+enters with its mesh's data group) a training-mode batch norm takes its
+statistics over the global batch, as JAX's jit does over a data-sharded
+batch (``rnnt_tpu/ops/norm.py:45-56``): two passes, the per-channel sums
+and the count all-reduced first, then the sums of squared deviations from
+the global mean (``jnp.var``'s arithmetic; the one-pass E[x^2] - E[x]^2
+can lose it in float32).  Both all-reduces are autograd Functions whose
+backward all-reduces too, so each rank's gradient takes the other ranks'
+uses of the shared statistics; the unbiased running variance uses the
+global count.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+
+from rnnt_tpu_torch.parallel.mesh import all_reduce_both
 
 _EPS = 1e-5
 _MOMENTUM = 0.1  # torch BatchNorm default: new = (1-m)*old + m*batch
@@ -46,13 +61,38 @@ def norm_apply(x: torch.Tensor, norm_type: str, scale=None, bias=None,
     return y.to(x.dtype)
 
 
-def batch_norm_train(x: torch.Tensor, scale, bias, mean, var):
-    """Training-mode batch norm over (B, T): (y, new_mean, new_var)."""
+_stats_group = None  # the process group batch statistics span (None: this rank)
+
+
+@contextlib.contextmanager
+def batch_stats_over(group):
+    """Inside, training-mode batch norms take their statistics over the
+    batch rows of every rank of ``group`` (None: this rank's rows)."""
+    global _stats_group
+    prev, _stats_group = _stats_group, group
+    try:
+        yield
+    finally:
+        _stats_group = prev
+
+
+def batch_norm_train(x: torch.Tensor, scale, bias, mean, var, group=None):
+    """Training-mode batch norm over (B, T): (y, new_mean, new_var); over
+    the (B, T) of every rank of ``group`` when one is given."""
     xf = x.float()
-    m = xf.mean(dim=(0, 1))
-    v = xf.var(dim=(0, 1), unbiased=False)
-    n = x.shape[0] * x.shape[1]
-    unbiased = v * (n / max(n - 1, 1))
+    if group is None:
+        m = xf.mean(dim=(0, 1))
+        v = xf.var(dim=(0, 1), unbiased=False)
+        n = x.shape[0] * x.shape[1]
+        unbiased = v * (n / max(n - 1, 1))
+    else:
+        C = x.shape[-1]
+        sums = all_reduce_both(torch.cat([xf.sum(dim=(0, 1)),
+                                          xf.new_full((1,), x.shape[0] * x.shape[1])]), group)
+        n = sums[C].detach()
+        m = sums[:C] / n
+        v = all_reduce_both(torch.sum((xf - m) ** 2, dim=(0, 1)), group) / n
+        unbiased = v * (n / (n - 1).clamp_min(1))
     new_mean = (1 - _MOMENTUM) * mean.float() + _MOMENTUM * m
     new_var = (1 - _MOMENTUM) * var.float() + _MOMENTUM * unbiased
     y = (xf - m) * torch.rsqrt(v + _EPS)
@@ -84,7 +124,7 @@ class Norm(nn.Module):
                 new_state: dict | None = None) -> torch.Tensor:
         if training and self.norm_type == "batch":
             y, m, v = batch_norm_train(x, self.scale, self.bias, self.mean,
-                                       self.var)
+                                       self.var, _stats_group)
             if new_state is not None:
                 new_state[f"{self.state_key}.mean"] = m
                 new_state[f"{self.state_key}.var"] = v

@@ -24,6 +24,12 @@ Kuang et al., Interspeech 2022, as the k2/icefall recipe trains it):
 
 ``pruned_warmup_loss`` is the warmup objective: the exact fused loss plus
 ``simple_scale`` x the simple NLL.
+
+A V-sharded joint (``tp_mesh`` set, ``parallel/mesh.shard_params``) takes
+the simple joint of ``parallel/partition.py`` and the fused kernels on its
+slice (``fused_joint_outputs(mesh=)``), in the banded loss and in both
+parts of the warmup loss (whose exact part then runs the fused path on the
+CPU too: the chunked joint has no sharded version).
 """
 
 from __future__ import annotations
@@ -53,9 +59,18 @@ def simple_joint_log_probs(simple, audio, text, targets, u_lens, blank: int):
     tgt = torch.cat([targets, targets.new_zeros((B, 1))], dim=1).long()
     am_lbl = torch.gather(am, 2, tgt[:, None, :].expand(B, am.shape[1], U1))
     lm_lbl = torch.gather(lm, 2, tgt[:, :, None])[..., 0]
-    lp_blank = am[..., blank][:, :, None] + lm[..., blank][:, None, :] - z
+    return simple_log_probs(z, am_lbl, lm_lbl, am[..., blank], lm[..., blank], u_lens)
+
+
+def simple_log_probs(z, am_lbl, lm_lbl, am_blank, lm_blank, u_lens):
+    """(lp_blank, lp_label) of the factored joint from its normalizer z
+    (B, T, U+1), the label logits am_lbl (B, T, U+1) and lm_lbl (B, U+1)
+    and the blank logits am_blank (B, T) and lm_blank (B, U+1); labels at
+    u >= u_len are NEG."""
+    U1 = z.shape[2]
+    lp_blank = am_blank[:, :, None] + lm_blank[:, None, :] - z
     lp_label = am_lbl + lm_lbl[:, None, :] - z
-    u_mask = torch.arange(U1, device=audio.device)[None, :] < u_lens[:, None]
+    u_mask = torch.arange(U1, device=z.device)[None, :] < u_lens[:, None]
     lp_label = torch.where(u_mask[:, None, :], lp_label,
                            torch.full_like(lp_label, NEG))
     return lp_blank, lp_label
@@ -127,6 +142,17 @@ def banded_to_full(lp_band, bounds, U1: int) -> torch.Tensor:
     return torch.where(inband, vals, torch.full_like(vals, NEG))
 
 
+def _simple(joint, audio, text, targets, u_lens, blank: int):
+    """The simple joint's (lp_blank, lp_label), V-sharded on a sharded
+    joint."""
+    if joint.tp_mesh is not None:
+        from rnnt_tpu_torch.parallel.partition import simple_joint_log_probs_tp
+
+        return simple_joint_log_probs_tp(joint.simple, audio, text, targets, u_lens,
+                                         blank, joint.tp_mesh)
+    return simple_joint_log_probs(joint.simple, audio, text, targets, u_lens, blank)
+
+
 def _banded_fused_log_probs(joint, audio_p, text_p, s_tile, targets_pad,
                             blank: int, band: int, tile: int,
                             grad_clamp: float):
@@ -148,7 +174,7 @@ def _banded_fused_log_probs(joint, audio_p, text_p, s_tile, targets_pad,
         text_band.reshape(B * n_t, band, H).contiguous(),
         joint.out.w.to(dt).contiguous(), joint.out.b.float().contiguous(),
         labels.reshape(B * n_t, band).to(torch.int32).contiguous(), blank,
-        grad_clamp)
+        grad_clamp, mesh=joint.tp_mesh)
     return ((blank_logit - lse).reshape(B, T_pad, band),
             (label_logit - lse).reshape(B, T_pad, band))
 
@@ -165,11 +191,10 @@ def pruned_warmup_loss(joint, audio, text, targets, t_lens, u_lens,
     from rnnt_tpu_torch.ops.transducer import transducer_loss
     from rnnt_tpu_torch.ops.transducer_pallas import transducer_loss_pallas
 
-    lpb_s, lpl_s = simple_joint_log_probs(joint.simple, audio, text, targets,
-                                          u_lens, blank)
+    lpb_s, lpl_s = _simple(joint, audio, text, targets, u_lens, blank)
     losses_simple = lattice_nll(lpb_s, lpl_s, t_lens, u_lens)
     args = (joint, audio, text, targets, t_lens, u_lens, blank)
-    if resolve_loss_impl("auto", audio.device) == "pallas":
+    if joint.tp_mesh is not None or resolve_loss_impl("auto", audio.device) == "pallas":
         exact = transducer_loss_pallas(*args, grad_clamp=grad_clamp,
                                        reduction="none")
     else:
@@ -197,8 +222,7 @@ def pruned_transducer_loss(joint, audio, text, targets, t_lens, u_lens,
     band = min(-(-band // 8) * 8, U1)
     tile = BOUNDS_TILE
 
-    lpb_s, lpl_s = simple_joint_log_probs(joint.simple, audio, text, targets,
-                                          u_lens, blank)
+    lpb_s, lpl_s = _simple(joint, audio, text, targets, u_lens, blank)
     losses_simple, gamma = nll_with_occupancy(lpb_s, lpl_s, t_lens, u_lens)
 
     n_t = -(-T // tile)

@@ -10,11 +10,11 @@ own files in place of orbax: a checkpoint directory holds
   (and accumulation) leaves under ``/``-joined JAX paths.
 
 Saves are synchronous.  ``restore`` resumes the model (weights and
-batch-norm statistics), the optimizer state and the step.  On a multi-rank
-run the loop saves on rank 0 only and every rank restores: every
-parameter and moment is replicated over the mesh, so rank 0's state is
-the whole state.  A tensor-parallel joint will change that: each model
-rank's shard then has to be gathered or written by its owner.
+batch-norm statistics), the optimizer state and the step.  Both take the
+whole model: on a multi-rank run the loop saves on rank 0 only, after
+gathering every tensor-parallel shard of the parameters and the moments
+over the model group (``parallel/mesh.whole_model``), and every rank
+restores the whole model before cutting it to its shards.
 """
 
 from __future__ import annotations

@@ -30,6 +30,16 @@ runs, ``:295``; the port does not) or streams the whole global batch, and
 takes its ``data`` rows of the same global batch.  Logging,
 ``metrics.jsonl``, evaluation and checkpoint saves happen on rank 0 with
 barriers around them; a resume restores on every rank.
+
+On a tensor-parallel mesh (``mesh.model`` > 1 without ``lattice_shard_t``)
+every rank builds (or restores) the whole model and cuts it to its shards
+(``parallel/mesh.shard_params``; the optimizer's moments follow), and says
+how many parameters it holds.  A save gathers every sharded parameter and
+moment over the model group and rank 0 writes the whole model in the
+unsharded layout, so a 1-rank ``cli.eval`` or resume reads it as it is,
+once every rank's replicated parameters were found bit-equal; a resume
+reads the whole model and cuts it again.  Rank 0's eval runs on the
+gathered whole model (``parallel/mesh.whole_model``), not sharded.
 """
 
 from __future__ import annotations
@@ -64,7 +74,14 @@ from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer
 from rnnt_tpu_torch.decode.greedy import greedy_decode
 from rnnt_tpu_torch.models.rnnt import RNNT, rnnt_init
 from rnnt_tpu_torch.ops.kernels import launch_counts
-from rnnt_tpu_torch.parallel.mesh import Mesh, make_mesh
+from rnnt_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    replica_digests,
+    shard_opt_state,
+    shard_params,
+    whole_model,
+)
 from rnnt_tpu_torch.train import checkpoint as ckpt
 from rnnt_tpu_torch.train.metrics import wer
 from rnnt_tpu_torch.train.optim import make_optimizer
@@ -333,11 +350,22 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
     for k in ("encoder", "predictor", "joint"):
         n = sum(p.numel() for p in getattr(model, k).parameters())
         say(f"Number of {k} parameters: {n:,}")
-    state = TrainState(model, optimizer.init(dict(model.named_parameters())), 0)
+    opt_state, step = None, 0
     if resume:
         opt_state, step = ckpt.restore(resume, model)
-        state = TrainState(model, opt_state, step)
         say(f"Resumed from {resume} at step {step}")
+    if mesh.model > 1 and not tc.lattice_shard_t:
+        layout = shard_params(model, mesh)
+        if opt_state is not None:
+            opt_state = shard_opt_state(opt_state, layout, mesh)
+        params = dict(model.named_parameters())
+        held = sum(p.numel() for p in params.values())
+        say(f"tensor parallel over {mesh.model} model ranks: {len(layout)} tensors "
+            f"sharded ({sum(params[n].numel() for n in layout):,} parameters on each "
+            f"rank); each rank holds {held:,} parameters")
+    if opt_state is None:
+        opt_state = optimizer.init(dict(model.named_parameters()))
+    state = TrainState(model, opt_state, step)
 
     step_fn = make_train_step(spec, fspec, optimizer, tc.precision,
                               spec_augment=tc.spec_augment,
@@ -366,8 +394,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         last_loss = float(pending[-1][1]["loss"])  # waits for the card
         dt = time.time() - t_log
         if not np.isfinite(last_loss):  # the same loss on every rank
-            if is_main:
-                ckpt.save(output_dir, state, cfg)
+            write(state)
             raise FloatingPointError(
                 f"non-finite loss {last_loss} at step {pending[-1][0]}; "
                 f"emergency checkpoint saved to {output_dir}")
@@ -403,34 +430,46 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         pending, audio_secs, t_log = [], 0.0, time.time()
 
     def run_eval() -> None:
-        """Rank 0 scores the model (replicated on every rank) while the
-        others wait; then every rank takes rank 0's WER."""
+        """Rank 0 scores the whole model (gathered from its shards on a
+        tensor-parallel mesh) while the others wait; then every rank takes
+        rank 0's WER."""
         nonlocal last_wer, t_log
         _barrier(mesh)
-        if is_main:
-            before = launch_counts()
-            model.eval()
-            res = evaluate(cfg, model, device=dev, batch_size=tc.global_batch_size)
-            model.train()
-            if res["utterances"]:
-                last_wer = res["wer"]
-                logger.log(state.step, {
-                    "wer/eval": last_wer, "loss/eval_exact": res["nll"],
-                    **{f"eval_launches/{k}": n - before[k]
-                       for k, n in launch_counts().items()}})
-                print(f"eval wer at step {state.step}: {last_wer:.4f} "
-                      f"(exact nll {res['nll']:.3f})")
+        with whole_model(model, mesh):
+            if is_main:
+                before = launch_counts()
+                model.eval()
+                res = evaluate(cfg, model, device=dev, batch_size=tc.global_batch_size)
+                model.train()
+                if res["utterances"]:
+                    last_wer = res["wer"]
+                    logger.log(state.step, {
+                        "wer/eval": last_wer, "loss/eval_exact": res["nll"],
+                        **{f"eval_launches/{k}": n - before[k]
+                           for k, n in launch_counts().items()}})
+                    print(f"eval wer at step {state.step}: {last_wer:.4f} "
+                          f"(exact nll {res['nll']:.3f})")
         last_wer = _from_main(mesh, last_wer)
         t_log = time.time()
 
+    def write(st: TrainState) -> None:
+        """Rank 0 writes the whole state: on a tensor-parallel mesh every
+        rank takes part in gathering the shards first, after checking that
+        the replicated parameters rank 0 writes are every rank's."""
+        if getattr(st.model, "tp_layout", {}):
+            digests = replica_digests(st.model, mesh)
+            if len(set(digests)) != 1:
+                raise RuntimeError(f"replicated parameters differ across the ranks at "
+                                   f"step {st.step}: digests {digests}")
+            say(f"replicated parameters bit-equal on the {mesh.world} ranks at step "
+                f"{st.step} (digest {digests[0]:#x})")
+        with whole_model(st.model, mesh, st.opt_state) as whole_opt:
+            if is_main:
+                ckpt.save(output_dir, TrainState(st.model, whole_opt, st.step), cfg)
+
     def save() -> None:
-        """Rank 0 writes the checkpoint: every parameter and optimizer
-        moment is replicated over the mesh (no tensor-parallel sharding
-        yet), so rank 0 holds the whole state.  A V-sharded joint will need
-        each model rank's shard gathered or written by its owner."""
         _barrier(mesh)
-        if is_main:
-            ckpt.save(output_dir, state, cfg)
+        write(state)
         _barrier(mesh)
 
     rows = mesh.rows(tc.global_batch_size // mesh.data)

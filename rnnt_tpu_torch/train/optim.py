@@ -13,7 +13,9 @@
 
 The state (``OptState``) holds float32 ``mu`` and ``nu`` by parameter name
 (``model.named_parameters()``); ``compat/jax_params.py`` carries it to and
-from the optax layout.
+from the optax layout.  On a tensor-parallel mesh the parameters are this
+rank's shards, so are the moments, and the clip takes its global norm from
+the caller (``norm``), which counts each shard once over the model group.
 """
 
 from __future__ import annotations
@@ -73,24 +75,28 @@ class AdamWClip:
         return OptState(0, zeros(), zeros(), 0, zeros() if self.k > 1 else {})
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: OptState) -> OptState:
+    def update(self, params: dict, grads: dict, state: OptState,
+               norm=None) -> OptState:
         """Apply one call's gradients to ``params`` in place; return the new
-        state (the tensors of ``state`` are updated in place too)."""
+        state (the tensors of ``state`` are updated in place too).
+        ``norm(grads)`` is the clip's global norm (by default the norm of
+        the given gradients)."""
         if self.k <= 1:
-            return self._apply(params, grads, state)
+            return self._apply(params, grads, state, norm)
         n = state.mini_step
         for name, g in grads.items():
             a = state.acc[name]
             a.add_((g.float() - a) / (n + 1))
         if n < self.k - 1:
             return OptState(state.count, state.mu, state.nu, n + 1, state.acc)
-        new = self._apply(params, state.acc, state)
+        new = self._apply(params, state.acc, state, norm)
         for a in state.acc.values():
             a.zero_()
         return OptState(new.count, new.mu, new.nu, 0, state.acc)
 
-    def _apply(self, params: dict, grads: dict, state: OptState) -> OptState:
-        g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+    def _apply(self, params: dict, grads: dict, state: OptState, norm=None) -> OptState:
+        g_norm = (norm(grads) if norm is not None
+                  else torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values())))
         clip = g_norm >= self.max_norm
         count = state.count + 1
         f32 = np.float32

@@ -29,11 +29,20 @@ generator on every rank and sliced to the rank's rows (``RowGenerator``),
 so a d-rank step computes what the 1-rank step does, and the model ranks of
 one data row run identical encoders.  With ``lattice_shard_t`` and a
 ``model`` axis larger than 1 the loss runs the T-sharded lattice (the
-chunked joint on the rank's T block, K6 and K7).  The gradients are summed
-over the model group (each model rank back-propagates only its T block of
-a loss the group shares; without ``lattice_shard_t`` the model ranks are
-replicas and are averaged) and averaged over the data group, before the
-global norm and the clip.
+chunked joint on the rank's T block, K6 and K7), and the gradients are
+summed over the model group (each model rank back-propagates only its T
+block of a loss the group shares) and averaged over the data group.
+Otherwise a model axis is tensor-parallel (``parallel/mesh.shard_params``
+cut the model): the sharded layers' collectives leave every replicated
+gradient the same on the model ranks, up to the order of float sums
+(cuDNN's weight-gradient algorithms and atomic adds need not give the
+same bits on two ranks), and every sharded one its rank's own.  The replicated
+gradients are averaged over the world, which keeps the replicas bit-equal
+where GSPMD holds one logical array; the sharded ones over the data group.
+The global and per-submodel norms (and the clip's) count each sharded
+gradient once (``parallel/mesh.squared_norms``).  On several data ranks,
+batch norms take their statistics over the data group
+(``ops/norm.batch_stats_over``).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from rnnt_tpu_torch.data import augment, augment_device
 from rnnt_tpu_torch.data.dataset import MULAW_PRESCALE, WIRE_SCALE
 from rnnt_tpu_torch.models.encoder import encoder_out_len
 from rnnt_tpu_torch.models.rnnt import RNNT, RNNTSpec, resolve_loss_impl, rnnt_forward
+from rnnt_tpu_torch.ops.norm import batch_stats_over
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec, make_featurizer
 from rnnt_tpu_torch.ops.transducer import transducer_loss
 from rnnt_tpu_torch.ops.transducer_pallas import transducer_loss_pallas
@@ -54,7 +64,7 @@ from rnnt_tpu_torch.ops.transducer_pruned import (
     pruned_transducer_loss,
     pruned_warmup_loss,
 )
-from rnnt_tpu_torch.parallel.mesh import all_reduce_sum
+from rnnt_tpu_torch.parallel.mesh import all_reduce_sum, squared_norms
 from rnnt_tpu_torch.train.optim import OptState
 from rnnt_tpu_torch.utils import RowGenerator, batch_draw
 
@@ -119,7 +129,9 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
     generator (or a ``RowGenerator``) the augmentations run.  ``mesh`` is
     read only under ``spec.lattice_shard_t``: the loss then takes the
     chunked joint and, when the mesh's ``model`` axis is larger than 1, the
-    T-sharded lattice (``rnnt_tpu/train/step.py:70-77,129-142``)."""
+    T-sharded lattice (``rnnt_tpu/train/step.py:70-77,129-142``).  A
+    V-sharded joint (``model.joint.tp_mesh``) takes the fused path for
+    ``auto`` on any device; ``chunked`` has no sharded joint and raises."""
     if spec.loss_impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss_impl {spec.loss_impl!r}")
     if spec.loss_impl == "pruned" and spec.lattice_shard_t:
@@ -177,8 +189,12 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
                 *args, band=spec.pruned_band,
                 simple_scale=spec.pruned_simple_scale,
                 pruned_scale=spec.pruned_scale, grad_clamp=spec.grad_clamp)
-        if (tshard_mesh is None
-                and resolve_loss_impl(spec.loss_impl, audio.device) == "pallas"):
+        sharded = model.joint.tp_mesh is not None
+        if sharded and spec.loss_impl == "chunked":
+            raise ValueError("loss_impl='chunked' has no vocabulary-sharded joint; "
+                             "use auto, pallas or pruned on a tensor-parallel mesh")
+        if tshard_mesh is None and (
+                sharded or resolve_loss_impl(spec.loss_impl, audio.device) == "pallas"):
             return transducer_loss_pallas(*args, grad_clamp=spec.grad_clamp)
         return transducer_loss(*args, chunk_size=spec.loss_chunk_size,
                                grad_clamp=spec.grad_clamp, mesh=tshard_mesh)
@@ -201,16 +217,26 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
 
 
-def sync_grads(grads: list, scale: float) -> list:
-    """The gradients summed over every rank and scaled, as one flat
-    all-reduce."""
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+def sync_grads(grads: list, scale: float, group=None) -> list:
+    """The gradients summed over ``group`` (every rank when None) and
+    scaled, as one flat all-reduce."""
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
     flat.mul_(scale)
     return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
-def _uses_batch_norm(spec: RNNTSpec) -> bool:
-    return "batch" in {spec.encoder.norm_type, *(b.norm_type for b in spec.encoder.blocks)}
+def sync_tp_grads(names, grads: list, layout: dict, mesh) -> list:
+    """Averaged gradients of a tensor-parallel (or data-parallel) mesh: the
+    replicated ones over the world, the sharded ones (``layout``) over the
+    data group."""
+    out = list(grads)
+    for sharded, scale, group in ((False, 1.0 / mesh.world, None),
+                                  (True, 1.0 / mesh.data, mesh.data_group)):
+        idx = [i for i, n in enumerate(names) if (n in layout) == sharded]
+        if idx and (not sharded or mesh.data > 1):
+            for i, g in zip(idx, sync_grads([grads[i] for i in idx], scale, group)):
+                out[i] = g
+    return out
 
 
 def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
@@ -226,15 +252,10 @@ def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
     loss_fn = make_loss_fn(spec, fspec, precision, spec_augment=spec_augment,
                            device_augment=device_augment, mesh=mesh)
     multi = mesh is not None and mesh.world > 1
-    if multi and mesh.data > 1 and _uses_batch_norm(spec):
-        raise NotImplementedError(
-            "batch-norm statistics reduced over the data group are not ported "
-            "yet (ROADMAP §1, with the tensor-parallel joint); use an "
-            "instance norm or mesh.data=1")
-    # Each model rank of a T-sharded loss holds a part of the gradient; the
-    # model ranks of any other loss are replicas.
+    # Each model rank of a T-sharded loss holds a part of the gradient, summed
+    # over the world; any other gradient is complete on its model rank.
     tshard = multi and spec.lattice_shard_t and mesh.model > 1
-    grad_scale = 1.0 / (mesh.data if tshard else mesh.world) if multi else 1.0
+    stats_group = mesh.data_group if multi and mesh.data > 1 else None
 
     def step(state: TrainState, batch: dict, generator):
         model = state.model
@@ -243,24 +264,31 @@ def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
             B = batch["target_lens"].shape[0]
             generator = RowGenerator(generator, mesh.data_rank * B, mesh.data * B)
         new_norm: dict = {}
-        loss = loss_fn(model, batch, training=True, generator=generator,
-                       new_state=new_norm)
+        with batch_stats_over(stats_group):
+            loss = loss_fn(model, batch, training=True, generator=generator,
+                           new_state=new_norm)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(params, grads)]
         loss, target_len = loss.detach(), batch["target_lens"].sum()
+        layout = getattr(model, "tp_layout", {})
+        if tshard:
+            grads = sync_grads(grads, 1.0 / mesh.data)
+        elif multi:
+            grads = sync_tp_grads(names, grads, layout, mesh)
         if multi:
-            grads = sync_grads(grads, grad_scale)
             both = all_reduce_sum(torch.stack([loss.float(), target_len.float()]))
             loss = both[0] / mesh.world  # the model ranks' losses are equal
             target_len = torch.round(both[1] / mesh.model).long()
-        metrics = {"loss": loss, "grad_norm": global_norm(grads),
+        named = dict(zip(names, grads))
+        sq = squared_norms(named, layout, mesh)
+        metrics = {"loss": loss, "grad_norm": torch.sqrt(sum(sq.values())),
                    "total_target_len": target_len}
         for sub in SUBMODELS:
-            metrics[f"grad_norm/{sub}"] = global_norm(
-                [g for n, g in zip(names, grads) if n.split(".")[0] == sub])
-        opt_state = optimizer.update(dict(zip(names, params)),
-                                     dict(zip(names, grads)), state.opt_state)
+            metrics[f"grad_norm/{sub}"] = torch.sqrt(sq.get(sub, torch.zeros(())))
+        opt_state = optimizer.update(
+            dict(zip(names, params)), named, state.opt_state,
+            norm=lambda gs: torch.sqrt(sum(squared_norms(gs, layout, mesh).values())))
         model.commit_norm_state(new_norm)
         return TrainState(model, opt_state, state.step + 1), metrics
 

@@ -14,7 +14,8 @@ bits, so a few dl values round to the neighbouring bf16 (2^-8 relative),
 and fp32 atomics sum in a varying order.  K4: the gradients are
 exp(alpha + lp + beta - ll) with exponents summed from O(10^2-10^3)
 log-probs in another order, so atol 1e-4, rtol 3e-3.  K5 copies values:
-bit-equal.  K6 and K7 take K3's and K4's tolerances, and on one shard at
+bit-equal.  K1 and K2 on a vocabulary slice (``v0``) take the same
+tolerances.  K6 and K7 take K3's and K4's tolerances, and on one shard at
 t0 = 0 equal K3 and K4 bit for bit (one sweep).  K2's softmax formed
 against K1's lse sums to 1 within 1e-5 (both kernels round h by one
 device function and sum the same logits).
@@ -30,8 +31,8 @@ from rnnt_tpu_torch.ops.lattice_pallas import (
     alpha_plain, beta_backward, beta_chain_backward, beta_chain_plain, beta_plain)
 from rnnt_tpu_torch.ops.transducer import NEG
 from rnnt_tpu_torch.ops.transducer_pallas import (
-    K1, K2, fused_joint_backward, fused_joint_bwd_plain, fused_joint_outputs,
-    fused_joint_outputs_plain)
+    K1, K2, fused_joint_backward, fused_joint_bwd_plain, fused_joint_forward,
+    fused_joint_outputs, fused_joint_outputs_plain)
 from rnnt_tpu_torch.ops.window_gather import K5, gather_windows, gather_windows_plain
 
 pytestmark = pytest.mark.cuda
@@ -175,6 +176,49 @@ def test_k2_matches_plain(cuda, shape, clamp):
     want = fused_joint_bwd_plain(*args, lse, g_blank, g_label, g_lse, clamp)
     for name, x, y in zip(("denc", "dpred", "dW", "db"), got, want):
         assert _rel_l2(x, y) < 5e-3, (name, _rel_l2(x, y))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 19, 7, 64, 48),        # 24-wide slices: one partial V tile each
+    (1, 5, 13, 100, 1000),     # 500-wide slices: V % 8 != 0, zero-padded
+    (2, 32, 17, 2048, 1024),   # scaled_tp's joint on its 2 model ranks
+])
+def test_k1_k2_on_vocabulary_slices(cuda, shape):
+    """K1 and K2 with v0 on two halves of V (the blank on the second, label
+    0 on the first) against their plain versions, and merged (lse by
+    logsumexp, blank and label summed; K2 from the merged lse, dW
+    concatenated, denc summed) against the whole V."""
+    B, T, U1, H, V = shape
+    enc, pred, w, b, labels, blank = _joint_case(shape, cuda, sum(shape) + 1)
+    labels[:, -1] = 0
+    g = torch.Generator().manual_seed(2)
+    gb, gl = (torch.randn(B, T, U1, generator=g).to(cuda) * 0.3 for _ in range(2))
+    gs = -(gb + gl)
+    whole = fused_joint_outputs(enc, pred, w, b, labels, blank)
+    Vs = V // 2
+    halves = [(enc, pred, w[:, v0:v0 + Vs].contiguous(), b[v0:v0 + Vs].contiguous(), labels,
+               blank, v0) for v0 in (0, Vs)]
+    outs = []
+    for sl in halves:
+        got = fused_joint_forward(*sl)
+        for x, y in zip(got, fused_joint_outputs_plain(*sl)):
+            _close(x, y, 2e-3, 1e-3)
+        outs.append(got)
+    assert torch.equal(outs[0][1], torch.zeros_like(outs[0][1]))  # the blank is on 1
+    lse = torch.logsumexp(torch.stack([o[0] for o in outs]), dim=0)
+    _close(lse, whole[0], 2e-3, 1e-3)
+    for i in (1, 2):
+        _close(outs[0][i] + outs[1][i], whole[i], 2e-3, 1e-3)
+    grads = []
+    for sl in halves:
+        got = fused_joint_backward(*sl[:-1], lse, gb, gl, gs, -1.0, sl[-1])
+        want = fused_joint_bwd_plain(*sl[:-1], lse, gb, gl, gs, -1.0, sl[-1])
+        for name, x, y in zip(("denc", "dpred", "dW", "db"), got, want):
+            assert _rel_l2(x, y) < 5e-3, (name, _rel_l2(x, y))
+        grads.append(got)
+    want = fused_joint_backward(enc, pred, w, b, labels, blank, whole[0], gb, gl, gs)
+    assert _rel_l2(grads[0][0] + grads[1][0], want[0]) < 5e-3
+    assert _rel_l2(torch.cat([grads[0][2], grads[1][2]], 1), want[2]) < 5e-3
 
 
 def test_k1_k2_softmax_sums_to_one(cuda):

@@ -12,7 +12,7 @@
   equal to the 1-rank resume;
 * the guards: a rank without a card, ``lattice_shard_t`` without a model
   axis or with the pruned loss, a batch that does not split over the data
-  axis, batch norm over a data axis;
+  axis, the chunked loss on a tensor-parallel mesh;
 * ``CudaKernel.launch`` runs on its tensors' device and that device's
   stream.
 
@@ -196,7 +196,8 @@ def test_rank_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("extra,data,model,match", [
     (["training.lattice_shard_t=true"], 1, 1, "lattice_shard_t"),
     (["training.global_batch_size=6"], 4, 1, "does not divide"),
-], ids=["shard-t-without-model-axis", "batch-over-data"])
+    (["training.loss_impl=chunked"], 1, 2, "no tensor-parallel joint"),
+], ids=["shard-t-without-model-axis", "batch-over-data", "chunked-tensor-parallel"])
 def test_check_mesh_refuses(vocab, extra, data, model, match):
     cfg = tconfig.apply_overrides(tconfig.load_config(tconfig.resolve_config(
         "tiny_conv")), _overrides(vocab, *extra))
@@ -217,17 +218,6 @@ def test_lattice_shard_t_refuses_pruned(vocab):
     with pytest.raises(ValueError, match="lattice_shard_t"):
         step.make_loss_fn(dataclasses.replace(spec, lattice_shard_t=True),
                           tconfig.build_featurizer_spec(cfg))
-
-
-def test_batch_norm_over_data_axis_is_not_ported(vocab):
-    from rnnt_tpu_torch.parallel.mesh import Mesh
-
-    cfg = tconfig.apply_overrides(tconfig.load_config(tconfig.resolve_config(
-        "tiny_conv")), _overrides(vocab, "encoder.norm_type=batch"))
-    spec = tconfig.build_model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="batch-norm"):
-        step.make_train_step(spec, tconfig.build_featurizer_spec(cfg), None,
-                             mesh=Mesh(data=2, model=1))
 
 
 # ------------------------------ launch device ------------------------------

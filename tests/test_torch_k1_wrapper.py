@@ -19,7 +19,7 @@ from rnnt_tpu_torch.ops import kernels
 from rnnt_tpu_torch.ops import transducer_pallas as ttp
 
 _ARGS = ("enc", "pred", "w", "bias", "labels", "h_ws", "lse", "blank_out", "label_out",
-         "B", "T", "U1", "Hp", "V", "Vp", "blank")
+         "B", "T", "U1", "Hp", "V", "Vp", "blank", "v0")
 
 
 @pytest.fixture
@@ -86,7 +86,7 @@ def test_k1_wrapper_layout(fake_k1, shape, padded):
     assert ws.is_contiguous() and ws.stride(0) * ws.element_size() % 16 == 0
     assert (got["B"], got["T"], got["U1"], got["Hp"], got["V"], got["Vp"]) == (
         B, T, U1, Hp, V, Vp)
-    assert got["blank"] == V - 1
+    assert got["blank"] == V - 1 and got["v0"] == 0
     for i, name in enumerate(("enc", "pred", "w")):
         x, src = got[name], args[i]
         if name in padded:
@@ -138,11 +138,11 @@ def test_k1_wrapper_refuses_other_devices():
 
 def test_k1_entry_point_signature():
     """The ctypes signature matches the C entry point in csrc/joint_fwd.cu:
-    9 pointers, B, T, U1, Hp, V, Vp and blank as ints, the stream."""
-    assert ttp.K1.argtypes == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    9 pointers, B, T, U1, Hp, V, Vp, blank and v0 as ints, the stream."""
+    assert ttp.K1.argtypes == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     src = (Path(ttp.__file__).resolve().parents[1] / "csrc" / "joint_fwd.cu").read_text()
     params = re.search(r'extern "C" int rnnt_joint_fwd\(([^)]*)\)', src).group(1).split(",")
     names = [p.split()[-1].lstrip("*") for p in params]
     assert names == list(_ARGS) + ["stream"]
     kinds = ["int" if p.split()[0] == "int" else "ptr" for p in params]
-    assert kinds == ["ptr"] * 9 + ["int"] * 7 + ["ptr"]
+    assert kinds == ["ptr"] * 9 + ["int"] * 8 + ["ptr"]

@@ -15,7 +15,7 @@ from rnnt_tpu_torch.ops import transducer_pallas as ttp
 
 _ARGS = ("enc", "pred", "w", "b", "labels", "lse", "g_blank", "g_label", "g_lse",
          "h_ws", "dl_ws", "denc", "dpred", "dw", "db", "B", "T", "U1", "Hp", "V",
-         "Vp", "blank", "grad_clamp")
+         "Vp", "blank", "v0", "grad_clamp")
 
 
 @pytest.fixture
@@ -85,7 +85,7 @@ def test_k2_wrapper_layout(fake_k2, shape, padded):
         assert ws.is_contiguous() and ws.stride(0) * ws.element_size() % 16 == 0
     assert (got["B"], got["T"], got["U1"], got["Hp"], got["V"], got["Vp"]) == (
         B, T, U1, Hp, V, Vp)
-    assert got["blank"] == V - 1
+    assert got["blank"] == V - 1 and got["v0"] == 0
     assert got["grad_clamp"] == pytest.approx(0.5)
     for i, name in enumerate(("enc", "pred", "w")):
         x, src = got[name], args[i]
@@ -119,7 +119,7 @@ def test_k2_wrapper_refuses_other_devices():
 
 def test_k2_entry_point_signature():
     """The ctypes signature matches the C entry point: 15 pointers, B, T,
-    U1, Hp, V, Vp and blank as ints, the clamp as a float, the stream."""
-    assert ttp.K2.argtypes == [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [
+    U1, Hp, V, Vp, blank and v0 as ints, the clamp as a float, the stream."""
+    assert ttp.K2.argtypes == [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
-    assert len(_ARGS) == 23
+    assert len(_ARGS) == 24

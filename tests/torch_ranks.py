@@ -1,6 +1,6 @@
 """Run a function on n ranks of a gloo process group in spawned CPU
 processes, for the port's multi-rank tests (tests/test_torch_tshard.py,
-tests/test_torch_distributed.py).
+tests/test_torch_distributed.py, tests/test_torch_tp.py).
 
 The rank functions live here, not in the test files, so a spawned process
 imports torch and the port only, never JAX.  Every run has its own
@@ -147,3 +147,64 @@ def loss_fn_rank(data: int, model: int, cfg, state_dict: dict, batch: dict):
 
 def flat_params(params: dict) -> np.ndarray:
     return np.concatenate([v.ravel() for _, v in sorted(params.items())])
+
+
+class RecordingOptimizer:
+    """An optimizer that keeps a copy of the gradients it is given (the
+    train step's synchronized gradients), then updates as ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, {}
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, params, grads, state, norm=None):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.inner.update(params, grads, state, norm=norm)
+
+
+def mesh_train_rank(data: int, model: int, cfg, runs: dict, batches: list):
+    """Train steps on this rank's rows over a data x model mesh: for each
+    ``runs[name] = (loss_impl, flat params, flat state)`` a model is built
+    whole from the flat numpy weights (``compat.from_flat``), cut to this
+    rank's shards on a model axis (``shard_params``) and takes one step per
+    batch (numpy global batches, no generator).  Returns, by run, each
+    step's metrics, the last step's synchronized gradients, the parameters
+    gathered whole, the batch-norm buffers, the layout, the shapes this
+    rank holds of its sharded parameters and their two moments, and every
+    rank's digest of its replicated parameters."""
+    import dataclasses
+
+    from rnnt_tpu_torch.compat.jax_params import from_flat
+    from rnnt_tpu_torch.config import config as tconfig
+    from rnnt_tpu_torch.parallel.mesh import (
+        gather_params, make_mesh, replica_digests, shard_params)
+    from rnnt_tpu_torch.train import optim, step
+
+    mesh = make_mesh(data, model)
+    fspec = tconfig.build_featurizer_spec(cfg)
+    out = {}
+    for name, (impl, flat, state_flat) in runs.items():
+        spec = dataclasses.replace(tconfig.build_model_spec(cfg), loss_impl=impl)
+        m = from_flat(flat, state_flat, spec)
+        layout = shard_params(m, mesh)
+        opt = RecordingOptimizer(optim.make_optimizer(cfg.training, 100)[0])
+        fn = step.make_train_step(spec, fspec, opt, "fp32", mesh=mesh)
+        state = step.TrainState(m, opt.init(dict(m.named_parameters())), 0)
+        metrics = []
+        for batch in batches:
+            rows = mesh.rows(batch["audio"].shape[0] // data)
+            state, mt = fn(state, step.batch_to_device({k: v[rows] for k, v in batch.items()},
+                                                        "cpu"), None)
+            metrics.append({k: float(v) for k, v in mt.items()})
+        params = dict(m.named_parameters())
+        out[name] = dict(
+            metrics=metrics, layout=layout,
+            grads={k: g.numpy() for k, g in opt.grads.items()},
+            params={k: v.numpy() for k, v in gather_params(m, mesh).items()},
+            buffers={k: v.numpy().copy() for k, v in m.named_buffers()},
+            digests=replica_digests(m, mesh),
+            held={n: [tuple(params[n].shape), tuple(state.opt_state.mu[n].shape),
+                      tuple(state.opt_state.nu[n].shape)] for n in layout})
+    return dict(place=(mesh.data_rank, mesh.model_rank), runs=out)
