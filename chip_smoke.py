@@ -76,6 +76,30 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    HTTP clients of 2 s (one at 48 kHz), /text, the 503 past the slots,
    DELETE, /stats (device steps >= 1, mean batched lanes > 1); a
    ``{"serve": ...}`` line before the kernels line;
+4d. bundle phase (slice 13, after the serve phase; no transducer kernel
+   from the export on): a reference-format (PyTorch RNN-T) checkpoint of
+   full-width ``base_convjs`` synthesized from a seed (the reference's key
+   names and layouts, ``completed_steps`` 1000) through ``python -m
+   rnnt_tpu_torch.cli.import_torch`` (the pruned loss's simple heads
+   back-filled), then ``cli.eval`` and ``train.loop.evaluate`` on its
+   checkpoint (K1 and K3 launched, WER and NLL finite, the step and two
+   tensors read back); the stream check's ``base_convjs_fullcausal`` at
+   blank bias 0.25 through ``cli.export --device cuda``; ``BundleRuntime``
+   on the card over 10 s of the stream check's audio (whole chunks),
+   offline and in 0.2 s feeds, token for token equal to a
+   ``StreamingSession`` of the same model (a run with no token a failure);
+   the same bundle on the CPU over 3 s equal to the card's chunk for chunk
+   (a chunk that decided a blank required: the first second emits at the
+   per-frame cap); each graph's median ms (CUDA events), the files' sizes;
+   then in their own processes ``cli.run_bundle`` offline and
+   ``--streaming-chunks 0.2`` on a 4 s WAV (``--max-tokens`` past its
+   tokens; tokens equal to the runtime's; audio-s/s as it prints them) and
+   ``cli.serve --bundle`` with 2 HTTP clients of 2 s (one at 48 kHz), the
+   503 past its 2 slots, DELETE, ``/stats`` in bundle mode; K1-K7 launch 0
+   times in the script's process from the export on, and each child
+   process reports at its exit that it loaded no module of the port's
+   models, train, decode or ops (where K1-K7 live); a ``{"bundle": ...}``
+   line before the kernels line;
 4b. decode phase (slice 11) on full-width ``base_convjs`` (random weights
    from seed 0, the bf16 eval forward): beam 8 with the defaults at
    ``bench.py`` ``bench_beam``'s load (16 synthetic 10 s utterances,
@@ -148,7 +172,8 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    input gradient's all-reduce; ``--exchange``, one rank of that
    measurement);
 7. print the card's name and power limit, a ``{"multi_rank": ...}`` line,
-   a ``{"serve": ...}`` line, a ``{"decode": ...}`` line, a
+   a ``{"serve": ...}`` line, a ``{"bundle": ...}`` line, a
+   ``{"decode": ...}`` line, a
    ``{"kernels": [...]}`` line (K1-K7; K1's and K2's entries with their
    slice cases and launches per tensor-parallel step, K3's with its
    rescoring case), then, last, the ``{"ok": true, ...}`` line.
@@ -1296,12 +1321,23 @@ def k5_calls(record: list | None = None, plain: bool = False):
         ad.gather_windows = saved
 
 
+def k5_window_samples(starts, L: int, width: int) -> int:
+    """Distinct samples of x that K5 reads: per row the union of the
+    windows [clip(start), clip(start) + width) within [0, L) (at most
+    min(L, N * width)); reads past L are zeros, not loads."""
+    c = starts.long().clamp(0, L - 1).sort(dim=1).values
+    end = (c + width).clamp(max=L)
+    prev_end = torch.cat([torch.zeros_like(end[:, :1]), end[:, :-1]], dim=1)
+    return int((end - torch.maximum(c, prev_end)).clamp(min=0).sum())
+
+
 def k5_bound(x, starts, width) -> tuple[float, str]:
-    """(ms, "bytes"): x and the starts read once and the output written
-    once at the card's memory rate; K5 does no arithmetic."""
+    """(ms, "bytes"): the window samples of x that this call's starts
+    touch and the starts read once and the output written once at the
+    card's memory rate; K5 does no arithmetic."""
     B, L = x.shape
     N = starts.shape[1]
-    nbytes = 4 * B * L + 4 * B * N + 4 * B * N * width
+    nbytes = 4 * k5_window_samples(starts, L, width) + 4 * B * N + 4 * B * N * width
     return nbytes / PEAK_BYTES * 1e3, "bytes"
 
 
@@ -1564,6 +1600,29 @@ def smallest_margin(model, enc: torch.Tensor, hyp: list, cap: int = 256) -> floa
 STREAM_CASES = ((0.25, 10.0, 128), (0.0, 4.0, 128))
 
 
+def stream_model(spec, device):
+    """The stream check's model: random weights from seed 0, batch-norm
+    statistics drawn in [0.5, 1.5] from seed 5."""
+    from rnnt_tpu_torch.models.rnnt import rnnt_init
+
+    model = rnnt_init(spec, seed=0, device=device)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for buf in model.buffers():
+            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+    return model
+
+
+def stream_wave(n: int, sample_rate: int = 16000):
+    """The stream check's audio: noise (RandomState(0)) and a 500 Hz tone,
+    float32 numpy."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    return (rng.randn(n).astype(np.float32) * 0.2
+            + np.sin(2 * np.pi * 500 * np.arange(n) / sample_rate).astype(np.float32) * 0.3)
+
+
 def stream_offline_check(workdir: Path, device, config="base_convjs_fullcausal",
                          overrides=(), cases=STREAM_CASES, chunk_s=0.2) -> dict:
     """StreamingSessions fed audio in ``chunk_s`` pieces against offline
@@ -1575,23 +1634,14 @@ def stream_offline_check(workdir: Path, device, config="base_convjs_fullcausal",
     from rnnt_tpu_torch.decode.greedy import greedy_decode
     from rnnt_tpu_torch.decode.streaming import StreamingSession
     from rnnt_tpu_torch.models.encoder import encoder_streaming_init_state
-    from rnnt_tpu_torch.models.rnnt import rnnt_init
     from rnnt_tpu_torch.ops.stft import FeatureStreamer, make_featurizer
-
-    import numpy as np
 
     _, spec, fspec = serve_cfg(workdir, config, overrides)
     if spec.encoder.norm_type != "batch":
         raise ValueError(f"{config}: streamed equals offline only with batch norm")
-    model = rnnt_init(spec, seed=0, device=device)
-    g = torch.Generator().manual_seed(5)
-    with torch.no_grad():
-        for buf in model.buffers():
-            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
-    rng = np.random.RandomState(0)
+    model = stream_model(spec, device)
     n = int(max(c[1] for c in cases) * fspec.sample_rate)
-    wave = (rng.randn(n).astype(np.float32) * 0.2
-            + np.sin(2 * np.pi * 500 * np.arange(n) / fspec.sample_rate).astype(np.float32) * 0.3)
+    wave = stream_wave(n, fspec.sample_rate)
     step = int(chunk_s * fspec.sample_rate)
 
     streamer = FeatureStreamer(fspec, device)
@@ -1779,16 +1829,55 @@ def serve_process(workdir: Path, cfg, model, slots: int):
     from rnnt_tpu_torch.compat.jax_params import save_checkpoint
 
     ckpt = save_checkpoint(workdir / "serve_ckpt", cfg, model)
-    srv = dict(port=free_port(), log="")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    with server_process([str(ckpt), "--slots", str(slots)],
+                        next(model.parameters()).device) as srv:
+        yield srv
+
+
+def module_env() -> dict:
+    """The environment of a ``python -m rnnt_tpu_torch...`` subprocess."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
-    cmd = [sys.executable, "-m", "rnnt_tpu_torch.cli.serve", str(ckpt),
-           "--port", str(srv["port"]), "--slots", str(slots)]
-    if next(model.parameters()).device.type != "cuda":  # the CLI's default is the card
-        cmd += ["--device", "cpu"]
+
+
+# The port's packages that hold model code; K1-K7's wrappers live in ops.
+MODEL_CODE = tuple(f"rnnt_tpu_torch.{m}" for m in ("models", "train", "decode", "ops"))
+# ``python -c PROBE <module> *args`` runs ``python -m <module> *args`` and,
+# as the interpreter exits, prints the modules of MODEL_CODE it loaded.
+PROBE = ("import atexit, json, runpy, sys\n"
+         "atexit.register(lambda: print('loaded model code: ' + json.dumps(sorted(\n"
+         f"    m for m in sys.modules if m.startswith({MODEL_CODE!r}))), flush=True))\n"
+         "runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n")
+
+
+def module_cmd(module: str, args: list, device, probe: bool = False) -> list:
+    """``python -m <module> *args`` (through PROBE if ``probe``), with
+    ``--device cpu`` unless ``device`` is the card, the CLIs' default."""
+    cmd = [sys.executable, *(["-c", PROBE] if probe else ["-m"]), module, *args]
+    return cmd + ([] if torch.device(device).type == "cuda" else ["--device", "cpu"])
+
+
+def model_code_loaded(printed: str, what: str) -> list:
+    """The modules of MODEL_CODE that a PROBE'd process reported."""
+    line = next((ln for ln in printed.splitlines()
+                 if ln.startswith("loaded model code: ")), None)
+    if line is None:
+        raise AssertionError(f"{what} did not report the modules it loaded:\n{printed[-2000:]}")
+    return json.loads(line.split(": ", 1)[1])
+
+
+@contextlib.contextmanager
+def server_process(args: list, device, probe: bool = False):
+    """``python -m rnnt_tpu_torch.cli.serve *args`` on a free port, on the
+    card unless ``device`` is the CPU (through PROBE if ``probe``).  Yields
+    {"proc", "port"}; on leaving, SIGINT (then SIGKILL) stops it and its
+    output lands under "log"."""
+    srv = dict(port=free_port(), log="")
+    cmd = module_cmd("rnnt_tpu_torch.cli.serve", [*args, "--port", str(srv["port"])],
+                     device, probe)
     srv["proc"] = proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO, env=env,
-        start_new_session=True)
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO,
+        env=module_env(), start_new_session=True)
     srv["started"] = time.perf_counter()
     try:
         yield srv
@@ -1826,11 +1915,12 @@ def wait_for_server(srv: dict, timeout=300) -> float:
             time.sleep(0.5)
 
 
-def server_check(srv: dict, clients=4, seconds=2.0, chunk_s=0.2, timeout=300) -> dict:
-    """Drive the server of ``serve_process`` with ``clients`` slots:
-    ``clients`` concurrent HTTP clients each stream ``seconds`` (client 0
-    at 48 kHz), /text, the 503 of a session past the slots, DELETE,
-    /stats."""
+def server_check(srv: dict, clients=4, seconds=2.0, chunk_s=0.2, timeout=300,
+                 tag="serve/server") -> dict:
+    """Drive a ``cli.serve`` server with ``clients`` slots: ``clients``
+    concurrent HTTP clients each stream ``seconds`` (client 0 at 48 kHz),
+    /text, the 503 of a session past the slots, DELETE; returns the
+    numbers and the /stats after, which the caller checks."""
     import threading
     import urllib.error
 
@@ -1879,16 +1969,14 @@ def server_check(srv: dict, clients=4, seconds=2.0, chunk_s=0.2, timeout=300) ->
             raise
     texts = [req("DELETE", f"/session/{sid}")["text"] for sid in sids]
     stats = req("GET", "/stats")
+    audio_s = clients * int(seconds / chunk_s) * chunk_s
     out = dict(clients=clients, seconds_each=seconds, load_s=load_s,
-               feed_ms_p50=statistics.median(feeds_ms), feed_ms_max=max(feeds_ms),
-               text_chars=[len(t) for t in texts], stats=stats)
-    log(f"serve/server: {clients} clients x {seconds:g} s (client 0 at 48 kHz) in "
-        f"{load_s:.2f} s, feed round trip p50 {out['feed_ms_p50']:.1f} ms (max "
-        f"{out['feed_ms_max']:.1f}); 503 past {clients} slots; /stats {stats}")
-    if stats["active_slots"] != 0 or stats["device_steps"] < 1:
-        raise AssertionError(f"/stats after the clients: {stats}")
-    if not stats["mean_batched_lanes"] > 1:
-        raise AssertionError(f"no pump batched two clients: {stats}")
+               audio_s_per_s=audio_s / load_s, feed_ms_p50=statistics.median(feeds_ms),
+               feed_ms_max=max(feeds_ms), text_chars=[len(t) for t in texts], stats=stats)
+    log(f"{tag}: {clients} clients x {seconds:g} s (client 0 at 48 kHz) in "
+        f"{load_s:.2f} s ({out['audio_s_per_s']:.2f} audio-s/s), feed round trip p50 "
+        f"{out['feed_ms_p50']:.1f} ms (max {out['feed_ms_max']:.1f}); 503 past {clients} "
+        f"slots; /stats {stats}")
     return out
 
 
@@ -1915,10 +2003,312 @@ def serve_phase(workdir: Path, device, kernels, profile: Path | None = None,
         res["pool"] = pool_load_check(device, kernels, model, fspec, config=pool_config,
                                       profile=profile, **(pool or {}))
         res["server"] = server_check(srv, **(server or {})) | dict(up_s=up_s)
+    stats = res["server"]["stats"]
+    if stats["active_slots"] != 0 or stats["device_steps"] < 1:
+        raise AssertionError(f"/stats after the clients: {stats}")
+    if not stats["mean_batched_lanes"] > 1:
+        raise AssertionError(f"no pump batched two clients: {stats}")
     banner = next((ln for ln in srv["log"].splitlines() if ln.startswith("serving on")), "")
     res["server"]["banner"] = banner
     res["seconds"] = time.perf_counter() - t0
     log(f"serve phase: {res['seconds']:.1f} s; the server printed: {banner or 'nothing'}")
+    return res
+
+
+# ---------------------------- deployment path ----------------------------
+
+def reference_state_dict(spec, seed: int) -> dict:
+    """tests/reference_checkpoint.py's reference-format checkpoint of
+    ``spec`` (the generator the CPU tests hold against rnnt_tpu's import)."""
+    import importlib.util
+
+    found = importlib.util.spec_from_file_location(
+        "reference_checkpoint", REPO / "tests" / "reference_checkpoint.py")
+    mod = importlib.util.module_from_spec(found)
+    found.loader.exec_module(mod)
+    return mod.reference_state_dict(spec, seed)
+
+
+def run_module(module: str, args: list, device, timeout: int = 600,
+               probe: bool = False) -> tuple[str, float]:
+    """``module_cmd(module, args, device, probe)`` to its end; (its output,
+    seconds).  Kills it past ``timeout``; raises with the output's tail on
+    a nonzero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(module_cmd(module, args, device, probe), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=REPO, env=module_env(),
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n{out[-4000:]}")
+    return out, time.perf_counter() - t0
+
+
+# The path phase's settings under the YAML's own (pruned) loss, so that the
+# import back-fills the simple heads.
+IMPORT_OVERRIDES = [o for o in PATH_OVERRIDES if not o.startswith("training.loss_impl")]
+
+
+def import_check(workdir: Path, device, kernels, config="base_convjs",
+                 overrides=IMPORT_OVERRIDES, steps=1000, eval_elements=8) -> dict:
+    """A reference-format checkpoint of full-width ``config`` (seed 0,
+    ``completed_steps`` = ``steps``) through ``python -m
+    rnnt_tpu_torch.cli.import_torch`` (the pruned loss's simple heads
+    back-filled), then ``cli.eval`` and ``train.loop.evaluate`` (exact NLL
+    through the fused loss, ``loss_impl=auto``, + greedy) on ``device``:
+    the step and two imported tensors read back, K1 and K3 launched, the
+    WER and NLL finite."""
+    from rnnt_tpu_torch.cli import eval as cli_eval
+    from rnnt_tpu_torch.compat.jax_params import load_checkpoint
+    from rnnt_tpu_torch.config.config import apply_overrides, build_model_spec, load_config
+    from rnnt_tpu_torch.train import loop
+
+    import numpy as np
+
+    _, spec, _ = serve_cfg(workdir, config, overrides)
+    sd = reference_state_dict(spec, seed=0)
+    sd["completed_steps"] = steps
+    pt = workdir / f"checkpoint_step_{steps}.pt"
+    torch.save(sd, pt)
+    sets = [f"--set={o}" for o in [*overrides, f"tokenizer.vocab_json={workdir / 'serve_vocab.json'}"]]
+    printed, import_s = run_module(
+        "rnnt_tpu_torch.cli.import_torch",
+        [str(pt), str(workdir / "imported"), "--config", config, *sets], device)
+    ckpt = workdir / "imported" / f"checkpoint_step_{steps}"
+    if "fresh pruned-loss simple heads" not in printed or str(ckpt) not in printed:
+        raise AssertionError(f"cli.import_torch printed:\n{printed[-2000:]}")
+    with np.load(ckpt / "params.npz") as z:
+        n_params = sum(z[k].size for k in z.files if k.startswith("params/"))
+        ref = sd["model_state_dict"]
+        for key, want in (("params/joint/out/w", ref["module.joint.joint_ln.weight"].T),
+                          ("params/encoder/blocks/0/convs/1/w",
+                           ref["module.encoder.blocks.3.convs.1.conv.weight"].permute(2, 1, 0))):
+            if not np.array_equal(z[key], want.numpy()):
+                raise AssertionError(f"imported {key} differs from the reference tensor")
+    with np.load(ckpt / "opt_state.npz") as z:
+        if int(z["step"]) != steps or int(z["count"]) != 0:
+            raise AssertionError(f"imported step {int(z['step'])}, count {int(z['count'])}")
+    for k in kernels:
+        k.launches = 0
+    res = cli_eval.main([str(ckpt), "--batch-size", "4", "--max-elements",
+                         str(eval_elements), "--device", str(device)])
+    icfg = apply_overrides(load_config(ckpt / "config.yaml"), ["training.loss_impl=auto"])
+    scored = loop.evaluate(icfg, load_checkpoint(ckpt, build_model_spec(icfg), device),
+                           device=device, batch_size=4, max_batches=max(eval_elements // 4, 1))
+    launches = {k.name: k.launches for k in kernels}
+    out = dict(config=config, parameters=int(n_params), import_s=import_s, step=steps,
+               wer=res["wer"], utterances=res["utterances"], eval_s=res["seconds"],
+               nll=scored["nll"], eval_launches=launches)
+    log(f"bundle/import: reference-format {config} ({n_params:,} parameters, simple heads "
+        f"back-filled) through cli.import_torch in {import_s:.1f} s at step {steps}; "
+        f"cli.eval WER {res['wer']:.4f} over {res['utterances']} utterances in "
+        f"{res['seconds']:.2f} s; evaluate: exact NLL {scored['nll']:.4f}, WER "
+        f"{scored['wer']:.4f}; launches {launches}")
+    if not (math.isfinite(res["wer"]) and math.isfinite(scored["nll"])) \
+            or res["utterances"] == 0:
+        raise AssertionError(f"eval of the imported checkpoint: {res} / {scored}")
+    if kernels and not (launches["joint_fwd"] and launches["alpha_fwd"]):
+        raise AssertionError(f"K1 and K3 must launch on the imported model's eval: {launches}")
+    return out
+
+
+def graph_inputs(rt, wave):
+    """Each bundle graph's inputs from the first chunk of ``wave``, as the
+    runtime calls them."""
+    m = rt.manifest
+    dev = rt.device
+    chunk = torch.from_numpy(wave[:m["chunk_samples"]].copy())[None].to(dev)
+    with torch.inference_mode():
+        feats = rt.graphs["featurize"](chunk)
+        states = [torch.zeros(s, device=dev) for s in rt.state_shapes]
+        enc = rt.graphs["encoder_streaming"](feats, *states)[0]
+        pred = rt.graphs["predictor"](torch.full((1, rt.pred_tokens), m["blank_idx"],
+                                                 device=dev))
+    return {"featurize": (chunk,), "encoder_streaming": (feats, *states),
+            "encoder": (torch.zeros((1, 64, m["num_bins"]), device=dev),),
+            "predictor": (torch.full((1, rt.pred_tokens), m["blank_idx"], device=dev),),
+            "joint": (enc[:, 0], pred[:, 0])}
+
+
+def chunk_wave(manifest: dict, seconds: float):
+    """``stream_wave`` cut to the whole chunks nearest ``seconds``: the
+    bundle then encodes every feature frame, as a session does."""
+    per = manifest["chunk_samples"] - manifest["overlap"]
+    chunks = max(round((seconds * manifest["sample_rate"] - manifest["overlap"]) / per), 1)
+    return stream_wave(chunks * per + manifest["overlap"], manifest["sample_rate"])
+
+
+def chunk_tokens(rt, wave, max_tokens: int, per_frame: int) -> list[list[int]]:
+    """The tokens a bundle stream (at most ``per_frame`` a frame) emits at
+    each chunk of ``wave``, cut to whole chunks by ``chunk_wave``: the
+    overlap is fed first, then one chunk's new samples a feed."""
+    m = rt.manifest
+    stream = rt.open_stream(max_symbols_per_step=per_frame, max_tokens=max_tokens)
+    per = m["chunk_samples"] - m["overlap"]
+    stream.feed(wave[:m["overlap"]])
+    return [stream.feed(wave[i:i + per]) for i in range(m["overlap"], len(wave), per)]
+
+
+def bundle_phase(workdir: Path, device, kernels, import_config="base_convjs",
+                 import_overrides=IMPORT_OVERRIDES, config="base_convjs_fullcausal",
+                 overrides=(), bias=0.25, seconds=10.0, cpu_seconds=3.0, cli_seconds=4.0,
+                 clients=2, client_seconds=2.0, eval_elements=8, reps=20) -> dict:
+    """The deployment path (slice 13): ``import_check``; then the stream
+    check's model (``config`` at blank bias ``bias``) through ``cli.export
+    --device <card>``; ``BundleRuntime`` on the card against a
+    ``StreamingSession`` over ``seconds`` of ``stream_wave`` (whole chunks),
+    offline and in 0.2 s feeds, and the same bundle on the CPU over
+    ``cpu_seconds``, chunk for chunk (reaching past the first second,
+    where every frame emits at the cap, so blank decisions are compared);
+    each graph's median ms (CUDA events); then ``cli.run_bundle`` offline and
+    ``--streaming-chunks 0.2`` (no token cap before the file's end) and
+    ``cli.serve --bundle`` with ``clients`` HTTP clients in their own
+    processes.  K1-K7 launch no time in this process from the export on,
+    and the child processes load no module of MODEL_CODE."""
+    from rnnt_tpu_torch.cli import export as cli_export
+    from rnnt_tpu_torch.cli.run_bundle import read_wav
+    from rnnt_tpu_torch.compat.jax_params import save_checkpoint
+    from rnnt_tpu_torch.decode.streaming import StreamingSession
+    from rnnt_tpu_torch.runtime.bundle import BundleRuntime
+
+    import wave
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    res = {"import": import_check(workdir, device, kernels, import_config, import_overrides,
+                                  eval_elements=eval_elements)}
+    cfg, spec, fspec = serve_cfg(workdir, config, overrides)
+    model = stream_model(spec, device)
+    with torch.no_grad():
+        model.joint.out.b[spec.blank_idx] = bias
+    ckpt = save_checkpoint(workdir / "bundle_ckpt", cfg, model)
+    bundle = workdir / "bundle"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    cli_export.main([str(ckpt), "--out", str(bundle), "--device", torch.device(device).type])
+    res["export_s"] = time.perf_counter() - t0
+    res["files"] = {f.name: f.stat().st_size for f in sorted(bundle.iterdir())}
+
+    rt = BundleRuntime(bundle, device)
+    samples = chunk_wave(rt.manifest, seconds)
+    audio_s = len(samples) / fspec.sample_rate
+    cap = 10 * len(samples)  # no total cap: the session's chunk budget does not cut either
+    sync(device)
+    t0 = time.perf_counter()
+    tokens, _ = rt.transcribe(samples, pad_tail=False, max_tokens=cap)
+    offline_s = time.perf_counter() - t0
+    stream = rt.open_stream(max_tokens=cap)
+    step = int(0.2 * fspec.sample_rate)
+    t0 = time.perf_counter()
+    for i in range(0, len(samples), step):
+        stream.feed(samples[i:i + step])
+    streamed_s = time.perf_counter() - t0
+    session = StreamingSession(model, fspec, max_tokens_per_chunk=128)
+    for i in range(0, len(samples), step):
+        session.feed(samples[i:i + step])
+    live = session.tokens()
+    res.update(config=config, blank_bias=bias, audio_s=audio_s, tokens=len(tokens),
+               runtime_offline_audio_s_per_s=audio_s / offline_s,
+               runtime_streamed_audio_s_per_s=audio_s / streamed_s)
+    log(f"bundle/export: {config} at blank bias {bias:g} through cli.export in "
+        f"{res['export_s']:.1f} s; files {res['files']}")
+    log(f"bundle/runtime on {device}: {audio_s:.3f} s of audio, {len(tokens)} tokens; offline "
+        f"{res['runtime_offline_audio_s_per_s']:.2f} audio-s/s, 0.2 s feeds "
+        f"{res['runtime_streamed_audio_s_per_s']:.2f}; the live session {len(live)} tokens")
+    if tokens != live or stream.tokens != live:
+        raise AssertionError(f"bundle tokens {tokens[:40]} / fed {stream.tokens[:40]} != the "
+                             f"live session's {live[:40]}")
+    if not tokens:
+        raise AssertionError(f"{config} at blank bias {bias:g}: the bundle and the session "
+                             "decoded no token, so their equality would show nothing")
+
+    inputs = graph_inputs(rt, samples)
+    per_frame = 10  # the runtime's and the session's max symbols a frame
+    with torch.inference_mode():
+        frames = rt.graphs["encoder_streaming"](*inputs["encoder_streaming"])[0].shape[1]
+    short = chunk_wave(rt.manifest, cpu_seconds)
+    on_card = chunk_tokens(rt, short, cap, per_frame)
+    cpu_rt = BundleRuntime(bundle, "cpu")
+    t0 = time.perf_counter()
+    on_cpu = chunk_tokens(cpu_rt, short, cap, per_frame)
+    # A chunk that emits fewer than the cap on every frame decided blank on
+    # one frame at least: the devices are compared on blank decisions too.
+    blank_chunks = sum(len(c) < per_frame * frames for c in on_card)
+    res["cpu"] = dict(audio_s=len(short) / fspec.sample_rate,
+                      tokens=sum(map(len, on_cpu)), chunks=len(on_cpu),
+                      chunks_with_a_blank=blank_chunks, seconds=time.perf_counter() - t0)
+    log(f"bundle/runtime on the CPU: {res['cpu']['audio_s']:.3f} s of audio, "
+        f"{res['cpu']['tokens']} tokens in {res['cpu']['seconds']:.2f} s; on {device} "
+        f"{sum(map(len, on_card))}; {blank_chunks} of {len(on_card)} chunks ({frames} frames "
+        f"each) decided a blank")
+    if on_cpu != on_card or not any(on_card):
+        raise AssertionError(f"the bundle on the CPU {on_cpu} != on {device} {on_card}")
+    if not blank_chunks:
+        raise AssertionError(f"every frame of the CPU comparison emitted {per_frame} tokens: "
+                             "no blank decision was compared")
+
+    with torch.inference_mode():
+        res["graph_ms"] = {name: cuda_ms(lambda f=rt.graphs[name], a=args: f(*a), reps)
+                           for name, args in inputs.items()}
+    log(f"bundle/graphs: median ms a call {res['graph_ms']}")
+
+    wav_path = workdir / "bundle.wav"
+    with wave.open(str(wav_path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(fspec.sample_rate)
+        w.writeframes((np.clip(chunk_wave(rt.manifest, cli_seconds), -1, 1) * 32767)
+                      .astype(np.int16).tobytes())
+    want, _ = rt.transcribe(read_wav(str(wav_path)), max_tokens=cap)
+    # The server loads the bundle while the run_bundle processes run, one
+    # after the other (two decoding at once contend for the host's cores).
+    # Each child reports the port's model code it loaded: K1-K7 live in ops.
+    res["model_code_loaded"] = {}
+    with server_process([str(bundle), "--bundle", "--slots", str(clients)], device,
+                        probe=True) as srv:
+        res["run_bundle"] = {}
+        for mode, extra in (("offline", []), ("streamed", ["--streaming-chunks", "0.2"])):
+            printed, secs = run_module(
+                "rnnt_tpu_torch.cli.run_bundle",
+                [str(bundle), str(wav_path), "--max-tokens", str(cap), *extra], device,
+                probe=True)
+            line = next(ln for ln in printed.splitlines() if ln.startswith("  tokens: "))
+            rate = next(ln for ln in printed.splitlines() if "audio-s/s" in ln)
+            got = json.loads(line.split(": ", 1)[1])
+            res["run_bundle"][mode] = dict(
+                process_s=secs, audio_s_per_s=float(rate.split()[0]), tokens=len(got),
+                increments=sum(ln.startswith("  +") for ln in printed.splitlines()))
+            res["model_code_loaded"][f"run_bundle {mode}"] = model_code_loaded(
+                printed, f"run_bundle {mode}")
+            log(f"bundle/run_bundle {mode}: {rate.strip()}; {len(got)} tokens, the process "
+                f"{secs:.1f} s")
+            if got != want:
+                raise AssertionError(f"run_bundle {mode} tokens {got[:40]} != the runtime's "
+                                     f"{want[:40]}")
+        up_s = wait_for_server(srv)
+        res["serve"] = server_check(srv, clients, client_seconds,
+                                    tag="bundle/serve") | dict(up_s=up_s)
+    res["model_code_loaded"]["serve --bundle"] = model_code_loaded(srv["log"],
+                                                                   "serve --bundle")
+    fed = clients * int(client_seconds / 0.2) * int(0.2 * fspec.sample_rate)
+    if res["serve"]["stats"] != {"sessions": 0, "fed_samples": fed, "mode": "bundle"}:
+        raise AssertionError(f"/stats after the bundle clients: {res['serve']['stats']}")
+    res["launches"] = {k.name: k.launches for k in kernels}
+    log(f"bundle/kernels: K1-K7 launches in this process from the export on "
+        f"{res['launches']}; model code the child processes loaded "
+        f"{res['model_code_loaded']}")
+    if any(res["launches"].values()) or any(res["model_code_loaded"].values()):
+        raise AssertionError("the bundle path ran model code: launches "
+                             f"{res['launches']}, loaded {res['model_code_loaded']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"bundle phase: {res['seconds']:.1f} s")
     return res
 
 
@@ -2414,10 +2804,8 @@ def run_ranks(n: int, args: list, log_path: Path, timeout: int = RANK_TIMEOUT) -
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
            "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
            "-m", "rnnt_tpu_torch.cli.train", *args]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, cwd=REPO, env=env, start_new_session=True)
+                            text=True, cwd=REPO, env=module_env(), start_new_session=True)
     try:
         out = proc.communicate(timeout=timeout)[0]
     except subprocess.TimeoutExpired:
@@ -2574,9 +2962,7 @@ def exchange_phase(workdir: Path, n_grad: int, ranks: int = 2, backend: str = "g
            "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
            str(REPO / "chip_smoke.py"), "--exchange", str(n_grad),
            "--exchange-backend", backend] + (["--exchange-tp", tp] if tp else [])
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
-    out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, env=env,
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, env=module_env(),
                          timeout=RANK_TIMEOUT)
     (workdir / "exchange.log").write_text(out.stdout + out.stderr)
     line = next((x for x in out.stdout.splitlines() if x.startswith('{"exchange"')), None)
@@ -3350,6 +3736,7 @@ def main() -> None:
             profile_phase(path["cfg"], path["model"], device, args.profile)
         del path["model"]
         serve = serve_phase(Path(tmp), device, kernels + [K6, K7], args.profile)
+        bundle = bundle_phase(Path(tmp), device, kernels + [K6, K7])
         decode = decode_phase(Path(tmp), device, kernels + [K6, K7],
                               measured["K3"]["lse_step_ns"])
         decode["lstm"] = lstm_phase(Path(tmp), device, kernels + [K6, K7])
@@ -3389,6 +3776,9 @@ def main() -> None:
                           + (f"; {m['gemm_note']}" if "gemm_note" in m else "")),
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
+    for e in entries:
+        e["launches_per_step"]["bundle (export and runtime)"] = bundle["launches"][
+            e["name"].split()[1]]
     for e, k in zip(entries[:2], ("k1", "k2")):
         e["slice_cases"] = {tag: dict(
             shape=c["shape"], parts=c["parts"],
@@ -3417,7 +3807,8 @@ def main() -> None:
         entries.append(dict(
             name=f"{key} {k.name}", route="cuda", source=f"rnnt_tpu_torch/csrc/{k.name}.cu",
             replaces=k.replaces, launches=sum(map(sum, by_rank)),
-            launches_per_step={"tshard (per rank)": by_rank},
+            launches_per_step={"tshard (per rank)": by_rank,
+                               "bundle (export and runtime)": bundle["launches"][k.name]},
             max_abs_err=max(ev[f"err{key[1]}"], lg[f"err{key[1]}"]),
             ms=statistics.mean(m[f"{plain}_ms"] for m in ev["shards"]),
             plain_ms=statistics.mean(m[f"{plain}_plain_ms"] for m in ev["shards"]),
@@ -3449,6 +3840,7 @@ def main() -> None:
     print(card)
     print(json.dumps({"multi_rank": multi}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"bundle": bundle}))
     print(json.dumps({"decode": decode}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,12 @@ and wake it, so the chunks of concurrent callers land in one sub-batch.
 The checkpoint is a directory of ``config.yaml`` and ``params.npz``
 (compat/jax_params.py).  Runs on CUDA unless ``--device cpu``; without CUDA
 it raises.  ``--set key.path=value`` overrides the checkpoint's config.
-Serving from an export bundle (``--bundle``) is not ported yet.
+
+``--bundle`` serves from an export bundle (``cli/export``) through
+``runtime/bundle.py`` and no model code: each session is a
+``BundleStream`` that the request threads drive one at a time under one
+lock (``BundleServerRuntime``; no batching across sessions, which needs
+the live model), and ``/stats`` reports ``"mode": "bundle"``.
 """
 
 from __future__ import annotations
@@ -38,13 +43,15 @@ import numpy as np
 
 
 def make_server(argv=None) -> ThreadingHTTPServer:
-    """Parse ``argv``, load the model and return the bound (not yet
-    serving) HTTP server; its ``runtime`` attribute owns the pump thread,
-    which ``runtime.stop()`` ends."""
+    """Parse ``argv``, load the model (or the bundle) and return the bound
+    (not yet serving) HTTP server; its ``runtime`` attribute owns the pump
+    thread, which ``runtime.stop()`` ends."""
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("checkpoint", help="checkpoint directory")
+    ap.add_argument("checkpoint",
+                    help="checkpoint directory, or an export bundle with --bundle")
     ap.add_argument("--bundle", action="store_true",
-                    help="serve from an export bundle (not ported yet)")
+                    help="serve from an export bundle (torch.export graphs + manifest "
+                         "only, no model code; runtime/bundle.py)")
     ap.add_argument("--config", default=None,
                     help="config yaml (default: next to checkpoint)")
     ap.add_argument("--host", default="127.0.0.1")
@@ -57,20 +64,33 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback")
     args = ap.parse_args(argv)
-    if args.bundle:
-        raise NotImplementedError(
-            "serving from an export bundle needs the bundle runtime, which is "
-            "not ported to rnnt_tpu_torch yet (ROADMAP.md queue 1, item 6: "
-            "export and the bundle runtime)")
+    from rnnt_tpu_torch.utils import resolve_device
 
+    dev = resolve_device(args.device)
+    if args.bundle:
+        runtime, description = bundle_runtime(args, dev)
+    else:
+        runtime, description = model_runtime(args, dev)
+    server = ThreadingHTTPServer((args.host, args.port), make_handler(runtime))
+    server.runtime = runtime
+    server.description = description
+    return server
+
+
+def bundle_runtime(args, dev):
+    from rnnt_tpu_torch.runtime.bundle import BundleRuntime
+
+    runtime = BundleServerRuntime(BundleRuntime(args.checkpoint, dev), slots=args.slots)
+    return runtime, f"export bundle {args.checkpoint} on {dev}, {args.slots} sessions"
+
+
+def model_runtime(args, dev):
     from rnnt_tpu_torch.compat.jax_params import find_config, load_checkpoint
     from rnnt_tpu_torch.config.config import (
         apply_overrides, build_featurizer_spec, build_model_spec, load_config)
     from rnnt_tpu_torch.decode.streaming import StreamingSessionPool
     from rnnt_tpu_torch.train.loop import _load_tokenizer
-    from rnnt_tpu_torch.utils import resolve_device
 
-    dev = resolve_device(args.device)
     cfg = apply_overrides(load_config(args.config or find_config(args.checkpoint)),
                           args.overrides)
     spec = build_model_spec(cfg)
@@ -79,13 +99,9 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     model = load_checkpoint(args.checkpoint, spec, dev)
     pool = StreamingSessionPool(model, fspec, slots=args.slots,
                                 chunk_seconds=args.chunk_seconds)
-    runtime = ServerRuntime(pool, tokenizer)
-    server = ThreadingHTTPServer((args.host, args.port), make_handler(runtime))
-    server.runtime = runtime
-    server.description = (
+    return ServerRuntime(pool, tokenizer), (
         f"model {cfg.model_name} on {dev}, {fspec.num_bins}-bin featurizer, "
         f"{args.slots} batched slots, background pump")
-    return server
 
 
 def main(argv=None) -> None:
@@ -193,6 +209,58 @@ class ServerRuntime:
     def stats(self):
         with self.cond:
             return self.pool.stats()
+
+
+class BundleServerRuntime:
+    """``serve --bundle``: a ``BundleStream`` a session, each request
+    driving its stream on the request's thread under one lock (one graph
+    call at a time).  Answers ``make_handler`` as ``ServerRuntime`` does;
+    ``open`` raises ``RuntimeError`` past ``slots`` sessions (503)."""
+
+    def __init__(self, bundle_runtime, slots: int = 8):
+        self.rt = bundle_runtime
+        self.slots = slots
+        self.lock = threading.Lock()
+        self.sessions: dict[str, object] = {}
+        self._fed_samples = 0
+
+    def open(self) -> str:
+        with self.lock:
+            if len(self.sessions) >= self.slots:
+                raise RuntimeError("all slots in use")
+            sid = uuid.uuid4().hex[:12]
+            self.sessions[sid] = self.rt.open_stream()
+            return sid
+
+    def feed(self, sid: str, audio):
+        with self.lock:
+            stream = self.sessions.get(sid)
+            if stream is None:
+                return None
+            self._fed_samples += len(audio)
+            return list(stream.feed(audio)), stream.text()
+
+    def text(self, sid: str):
+        with self.lock:
+            stream = self.sessions.get(sid)
+            return None if stream is None else stream.text()
+
+    def delete(self, sid: str):
+        """Flush the tail, decode it, close the session."""
+        with self.lock:
+            stream = self.sessions.pop(sid, None)
+            if stream is None:
+                return ""
+            stream.flush()
+            return stream.text()
+
+    def stats(self):
+        with self.lock:
+            return {"sessions": len(self.sessions), "fed_samples": self._fed_samples,
+                    "mode": "bundle"}
+
+    def stop(self):
+        pass
 
 
 def resample_to_16k(audio: np.ndarray, rate: int) -> np.ndarray:

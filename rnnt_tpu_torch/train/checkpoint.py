@@ -37,7 +37,7 @@ from rnnt_tpu_torch.config.config import Config, save_config
 OPT_FILE = "opt_state.npz"
 
 __all__ = ["checkpoint_dir", "find_config", "latest_checkpoint",
-           "next_run_dir", "restore", "save"]
+           "next_run_dir", "restore", "save", "write_opt_state"]
 
 
 def checkpoint_dir(output_dir: str | Path, step: int) -> Path:
@@ -67,11 +67,17 @@ def save(output_dir: str | Path, state, cfg: Config) -> Path:
     beside it in the run directory."""
     path = checkpoint_dir(output_dir, state.step)
     save_params(path, cfg, state.model)
-    opt = flatten_tree(opt_state_to_jax(state.opt_state))
-    opt["step"] = np.int64(state.step)
-    np.savez(path / OPT_FILE, **opt)
+    write_opt_state(path, state.opt_state, state.step)
     save_config(cfg, Path(output_dir) / "config.yaml")
     return path
+
+
+def write_opt_state(path: str | Path, opt_state, step: int) -> None:
+    """``opt_state.npz`` of a checkpoint directory: the step and the
+    optimizer state's leaves under their JAX paths."""
+    opt = flatten_tree(opt_state_to_jax(opt_state))
+    opt["step"] = np.int64(step)
+    np.savez(Path(path) / OPT_FILE, **opt)
 
 
 def restore(path: str | Path, model) -> tuple:

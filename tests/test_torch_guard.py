@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from rnnt_tpu_torch.cli import eval as cli_eval
+from rnnt_tpu_torch.cli import export as cli_export
+from rnnt_tpu_torch.cli import import_torch as cli_import_torch
 from rnnt_tpu_torch.cli import infer as cli_infer
+from rnnt_tpu_torch.cli import run_bundle as cli_run_bundle
 from rnnt_tpu_torch.cli import serve as cli_serve
 from rnnt_tpu_torch.cli import train as cli_train
 from rnnt_tpu_torch.config.config import apply_overrides, load_config, resolve_config
@@ -68,6 +71,30 @@ def test_cli_infer_refuses_missing_cuda(no_cuda, tmp_path):
         cli_infer.main([str(tmp_path), str(tmp_path / "a.wav")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_infer.main([str(tmp_path), str(tmp_path / "a.wav"), "--streaming"])
+
+
+@pytest.mark.parametrize("entry", ["export", "run_bundle", "import_torch", "serve_bundle",
+                                   "bundle_runtime"])
+def test_deployment_entry_points_refuse_missing_cuda(no_cuda, tmp_path, entry):
+    """The deployment path's entry points, by default and with --device
+    cuda, before they read anything."""
+    from rnnt_tpu_torch.runtime.bundle import BundleRuntime
+
+    for name in ("manifest.json", "tokenizer.json", "encoder_streaming_states.json"):
+        (tmp_path / name).write_text("{}")
+    calls = {
+        "export": lambda *dev: cli_export.main([str(tmp_path), *dev]),
+        "run_bundle": lambda *dev: cli_run_bundle.main([str(tmp_path), "a.wav", *dev]),
+        "import_torch": lambda *dev: cli_import_torch.main(
+            [str(tmp_path / "a.pt"), str(tmp_path / "out"), "--config", "tiny_conv", *dev]),
+        "serve_bundle": lambda *dev: cli_serve.main(
+            [str(tmp_path), "--bundle", "--port", "0", *dev]),
+        "bundle_runtime": lambda *dev: BundleRuntime(tmp_path, *dev[1:]),
+    }
+    for dev in ((), ("--device", "cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            calls[entry](*dev)
+    assert not (tmp_path / "out").exists() and not (tmp_path / "export").exists()
 
 
 def test_evaluate_refuses_missing_cuda(no_cuda, tmp_path):

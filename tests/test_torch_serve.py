@@ -11,7 +11,10 @@
   its StreamingSession, on the same weights;
 * ``read_wav`` refuses a WAV whose samples are not 16-bit (8-bit here),
   where rnnt_tpu's reader decodes any bytes as int16;
-* ``--bundle`` is refused with the reason.
+* ``--bundle`` serves an export bundle of the tiny model (``cli.export
+  --device cpu``) through ``runtime/bundle.py``: a session's text after
+  DELETE is ``BundleRuntime``'s on the same samples, ``/stats`` reports
+  the bundle mode.
 """
 
 import json
@@ -32,6 +35,7 @@ from rnnt_tpu.config import config as jconfig  # noqa: E402
 from rnnt_tpu.decode.greedy import greedy_decode as jgreedy  # noqa: E402
 from rnnt_tpu.decode.streaming import StreamingSession as JStreamingSession  # noqa: E402
 from rnnt_tpu.train.step import make_eval_forward as jeval_forward  # noqa: E402
+from rnnt_tpu_torch.cli import export as cli_export  # noqa: E402
 from rnnt_tpu_torch.cli import infer as cli_infer  # noqa: E402
 from rnnt_tpu_torch.cli import serve as cli_serve  # noqa: E402
 from rnnt_tpu_torch.compat.jax_params import save_checkpoint, to_jax  # noqa: E402
@@ -39,6 +43,7 @@ from rnnt_tpu_torch.config.config import BlockConfig, Config, build_model_spec  
 from rnnt_tpu_torch.data.dataset import synthetic_piece_table  # noqa: E402
 from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer  # noqa: E402
 from rnnt_tpu_torch.models.rnnt import rnnt_init  # noqa: E402
+from rnnt_tpu_torch.runtime.bundle import BundleRuntime  # noqa: E402
 
 
 def _tiny_cfg(vocab) -> Config:
@@ -71,9 +76,9 @@ def _checkpoint(root, seed, blank_bias=None):
 class _Server:
     """cli.serve's server on a thread; ``close`` stops it and its pump."""
 
-    def __init__(self, ckpt, slots):
+    def __init__(self, ckpt, slots, *extra):
         self.server = cli_serve.make_server(
-            [str(ckpt), "--port", "0", "--slots", str(slots), "--device", "cpu"])
+            [str(ckpt), "--port", "0", "--slots", str(slots), "--device", "cpu", *extra])
         self.port = self.server.server_address[1]
         self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
         self.thread.start()
@@ -89,7 +94,8 @@ class _Server:
         self.server.server_close()
         self.thread.join(timeout=10)
         assert not self.thread.is_alive()
-        assert not self.server.runtime._thread.is_alive()
+        pump = getattr(self.server.runtime, "_thread", None)  # none with --bundle
+        assert pump is None or not pump.is_alive()
 
 
 @pytest.fixture
@@ -163,9 +169,30 @@ def test_serve_concurrent_load_batches_lanes(server):
     assert st["max_batched_lanes"] >= 2, st
 
 
-def test_serve_refuses_bundle(tmp_path):
-    with pytest.raises(NotImplementedError, match="bundle runtime"):
-        cli_serve.make_server([str(tmp_path), "--bundle", "--device", "cpu"])
+def test_serve_bundle(tmp_path):
+    """``--bundle``: open a session (a second is refused with 503 past one
+    slot), feed 1.5 s, DELETE; the text is BundleRuntime's transcript of
+    the same samples, flushed tail included."""
+    ckpt, _, _ = _checkpoint(tmp_path, seed=2, blank_bias=0.8)
+    bundle = cli_export.main([str(ckpt), "--out", str(tmp_path / "bundle"), "--device", "cpu"])
+    pcm = (np.random.RandomState(7).randn(24000) * 3000).astype(np.int16)
+    server = _Server(bundle, 1, "--bundle")
+    try:
+        sid = server.req("POST", "/session")["session"]
+        with pytest.raises(urllib.error.HTTPError) as e:
+            server.req("POST", "/session")
+        assert e.value.code == 503
+        fed = server.req("POST", f"/feed/{sid}", pcm.tobytes())
+        assert set(fed) == {"new_tokens", "text"}
+        assert server.req("GET", f"/text/{sid}")["text"] == fed["text"]
+        assert server.req("GET", "/stats") == {"sessions": 1, "fed_samples": 24000,
+                                               "mode": "bundle"}
+        text = server.req("DELETE", f"/session/{sid}")["text"]
+        assert server.req("GET", "/stats")["sessions"] == 0
+    finally:
+        server.close()
+    tokens, want = BundleRuntime(bundle, "cpu").transcribe(pcm.astype(np.float32) / 32768.0)
+    assert tokens and text == want
 
 
 def _write_wav(path, samples, rate=16000):
