@@ -164,19 +164,37 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    step and 1 banded step, K1 and K2 on V slices in both); batch norm over
    the data group (slice 12): full-width
    ``base_convjs_fullcausal`` on ``mesh.data=2``, 1 step, K1-K4 once a
-   rank; each step's loss and gradient norm within the stated tolerances;
+   rank (without host augmentation since slice 14, so that both runs
+   train on the cached corpus's same rows); each step's loss and gradient norm within the stated tolerances;
    then what the transport costs: a carry row per hop, the log-likelihood
    all-reduce and the flat gradient all-reduce over gloo, and the
    tensor-parallel joint's collectives at scaled_tp's shapes (the lse
    merge, K2's denc and dpred all-reduce, encoder.out's gather and its
    input gradient's all-reduce; ``--exchange``, one rank of that
    measurement);
+6a. tools phase (slice 14, after the gradient check; ``tools_phase``):
+   ``cli.calc_global_features`` on the card over 96 synthetic 6-10 s
+   utterances with ``base_convjs_globalfeat``'s featurizer (finite
+   statistics, invstddev > 0; the first 8 against the CPU within
+   STATS_RTOL); ``cli.train --profile`` on full-width
+   ``base_convjs_globalfeat`` with those statistics, its host recipe
+   streamed, 7 steps, asynchronous checkpoints at steps 3 and 6 and a
+   final one (all complete, no partial directory; ``cli.eval`` reads the
+   last), the trace of steps 3-6 read back (each step's host ms by part,
+   K1-K4's ``launch`` spans once a step, device ms by kernel group, the
+   busy share), the native tokenizer required; the same config on 2 ranks
+   sharing the card over gloo (``mesh.data=2``, 2 steps, each rank
+   streaming its own shard: its printed shard line and both gradient
+   norms read back); ``cli.sweep`` with 2 trials of 2 steps of
+   full-width ``base_convjs`` (finite WERs, K1-K4 launched, each trial's
+   ``rnnt_grad_clamp``); ``cli.render_augments``;
 7. print the card's name and power limit, a ``{"multi_rank": ...}`` line,
    a ``{"serve": ...}`` line, a ``{"bundle": ...}`` line, a
-   ``{"decode": ...}`` line, a
+   ``{"decode": ...}`` line, a ``{"tools": ...}`` line, a
    ``{"kernels": [...]}`` line (K1-K7; K1's and K2's entries with their
    slice cases and launches per tensor-parallel step, K3's with its
-   rescoring case), then, last, the ``{"ok": true, ...}`` line.
+   rescoring case; every entry with its launches per step on the tools
+   path), then, last, the ``{"ok": true, ...}`` line.
 
 ``--profile DIR`` adds torch.profiler traces of two eval batches (after
 the path phase) and of three banded train steps without and with device
@@ -221,6 +239,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -3132,6 +3151,12 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
     out = {}
     for key in cases:
         (config, overrides), steps, many, one, rtol, expect = table[key]
+        if {"tp": n // 2, "tp_pruned": n // 2, "bn": n}.get(key, 1) > 1:
+            # These configs stream (the host recipe), and streamed, each data
+            # rank loads its own shard (slice 14), not its rows of the 1-rank
+            # run's global batches: without host augmentation the corpus is
+            # cached and every rank takes its rows of the same batches.
+            overrides = list(overrides) + ["data.augment=false"]
         model_name = load_config(resolve_config(config)).model_name
         base = ["--config", config, "--output-base", str(exp), "--max-steps", str(steps)]
         for o in overrides + [f"tokenizer.vocab_json={train['vocab']}"]:
@@ -3203,6 +3228,323 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
             log(f"tp: each rank holds {out[key]['sharded']['held_per_rank']:,} parameters, "
                 f"{out[key]['sharded']['sharded_per_rank']:,} of them its shards of "
                 f"{m.group(2)} tensors")
+    return out
+
+
+# ------------------------- slice 14: the training tools -------------------------
+
+# base_convjs_globalfeat at full width (its YAML's data settings: the host
+# recipe in 2 worker threads, streamed; batch norm), synthetic 6-10 s
+# utterances, an in-code vocabulary; the statistics come from
+# calc_global_features.  The sweep trains full-width base_convjs (its
+# YAML's data settings: corpus cached, device augmentation full, the
+# pruned loss in warmup: K1-K5 every step).
+TOOLS_CONFIG, SWEEP_CONFIG = "base_convjs_globalfeat", "base_convjs"
+TOOLS_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_seconds=10",
+                   "data.synthetic_size=96", "training.global_batch_size=4",
+                   "training.log_steps=1", "training.eval_max_elements=8",
+                   "tokenizer.spm_model=''"]
+SWEEP_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_seconds=10",
+                   "data.synthetic_size=16", "training.global_batch_size=4",
+                   "training.log_steps=1", "training.eval_max_elements=8",
+                   "tokenizer.spm_model=''"]
+# The card's per-channel statistics against the CPU's on the same
+# utterances, relative: the same float32 featurizer (TF32 off), sums in
+# another order.
+STATS_RTOL = 1e-4
+SHARD_LINE = re.compile(r"rank (\d+) \(data shard (\d+) of (\d+)\): epoch 0: (\d+) rows loaded "
+                        r"and host-augmented, (\d+) batches of (\d+) rows")
+JOINT_LATTICE = ("joint_fwd", "joint_bwd", "alpha_fwd", "beta_bwd")
+
+
+def trace_steps(path: Path, kernels) -> dict:
+    """Read a ``cli.train --profile`` trace (gzipped Chrome JSON): for each
+    ``step N`` span its host ms and those of its ``data``, ``train_step``
+    and ``bookkeeping`` parts, the ``launch <kernel>`` spans inside it, and
+    the device ms of the kernels that ran in it by TRACE_GROUPS group; the
+    device's busy share of the traced steps' wall time."""
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    host = [e for e in events if e.get("cat") == "user_annotation" and "dur" in e]
+    device = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    spans = sorted((e for e in host if e["name"].startswith("step ")), key=lambda e: e["ts"])
+    if not spans:
+        raise AssertionError(f"{path}: no step spans")
+
+    def inside(e, s):
+        return s["ts"] <= e["ts"] and e["ts"] + e["dur"] <= s["ts"] + s["dur"] + 1
+
+    steps = []
+    for s in spans:
+        parts = {p: sum(e["dur"] for e in host if e["name"] == p and inside(e, s)) / 1e3
+                 for p in ("data", "train_step", "bookkeeping")}
+        launched = {k.name: sum(1 for e in host if e["name"] == f"launch {k.name}"
+                                and inside(e, s)) for k in kernels}
+        groups: dict[str, float] = {}
+        for e in device:
+            if s["ts"] <= e["ts"] < s["ts"] + s["dur"]:
+                g = next((k for k, pat in TRACE_GROUPS if re.search(pat, e["name"])), "other")
+                groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
+        steps.append(dict(step=int(s["name"].split()[1]), host_ms=s["dur"] / 1e3,
+                          parts_ms=parts, launches=launched,
+                          device_ms={g: round(v, 4) for g, v in sorted(groups.items())},
+                          kernels=sum(1 for e in device
+                                      if s["ts"] <= e["ts"] < s["ts"] + s["dur"])))
+    t0, t1 = spans[0]["ts"], spans[-1]["ts"] + spans[-1]["dur"]
+    busy = busy_us(spans=[(e["ts"], e["ts"] + e["dur"]) for e in device if t0 <= e["ts"] < t1])
+    return dict(steps=steps, wall_ms=(t1 - t0) / 1e3,
+                busy_share=busy / (t1 - t0) if t1 > t0 else 0.0,
+                bytes=path.stat().st_size, events=len(events))
+
+
+def tools_phase(workdir: Path, device, kernels, config=TOOLS_CONFIG,
+                overrides=TOOLS_OVERRIDES, sweep_config=SWEEP_CONFIG,
+                sweep_overrides=SWEEP_OVERRIDES, utterances=96, check_utterances=8,
+                steps=7, rank_steps=2, sweep_steps=2, eval_batch=4) -> dict:
+    """Slice 14, the training tools, at full width and depth on ``device``:
+
+    (a) ``cli.calc_global_features`` over ``utterances`` synthetic 6-10 s
+        utterances (finite statistics, invstddev > 0), and the card's
+        statistics on the first ``check_utterances`` within STATS_RTOL of the
+        CPU's;
+    (b) ``cli.train --profile`` on ``config`` with those statistics as
+        ``featurizer.global_stats`` on the streamed host-augmented path,
+        ``steps`` steps, ``checkpoint_steps=3``, ``hist_steps=3``: the trace
+        of steps 3-6 names K1-K4 once a step (``loss_impl: auto``), the
+        asynchronous checkpoints at steps 3 and 6 and the final one are
+        complete with no partial directory left, ``cli.eval`` reads the
+        last, every loss is finite, the host tokenizer is the native one;
+    (c) the same on 2 ranks sharing the card over gloo (``mesh.data=2``,
+        ``rank_steps`` steps): both finish, their gradient norms agree, and
+        each says it loaded and augmented only its shard in batches of
+        G / 2 rows;
+    (d) ``cli.sweep``, 2 trials of ``sweep_steps`` steps on ``sweep_config``
+        (a YAML written here): both finish with a finite WER; K1-K4's
+        launches and each trial's ``rnnt_grad_clamp`` (K2's clamp path);
+    (e) ``cli.render_augments``: 15 WAVs and ``index.html``.
+
+    K1-K7's counts are set to 0 before each run and read after it; off the
+    card the launch checks are skipped (the wrappers run their plain
+    versions there)."""
+    from rnnt_tpu_torch.cli import calc_global_features as cli_cgf
+    from rnnt_tpu_torch.cli import eval as cli_eval
+    from rnnt_tpu_torch.cli import render_augments as cli_render
+    from rnnt_tpu_torch.cli import sweep as cli_sweep
+    from rnnt_tpu_torch.cli import train as cli_train
+    from rnnt_tpu_torch.config.config import (
+        apply_overrides, load_config, resolve_config, save_config)
+    from rnnt_tpu_torch.data.dataset import synthetic_piece_table
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    t_phase = time.time()
+    vocab = workdir / "tools_vocab.json"
+    vocab.write_text(json.dumps(synthetic_piece_table()))
+
+    def yaml_of(name: str, base: str, extra) -> tuple:
+        cfg = apply_overrides(load_config(resolve_config(base)),
+                              list(extra) + [f"tokenizer.vocab_json={vocab}"])
+        path = workdir / f"{name}.yaml"
+        save_config(cfg, path)
+        return path, cfg
+
+    def counts_to_zero():
+        for k in kernels:
+            k.launches = 0
+
+    def must_launch(what: str, got: dict, names=JOINT_LATTICE, each: int | None = None):
+        for name in names if on_card else ():
+            n = got.get(name, 0)
+            if (n == 0) if each is None else (n != each):
+                raise AssertionError(f"{what}: {name} launched {n} times, expected "
+                                     f"{'some' if each is None else each}")
+
+    out: dict = {}
+    # (a) the featurizer's statistics on the card, then against the CPU.
+    stats_yaml, _ = yaml_of("tools_stats", config, list(overrides) + [
+        f"data.synthetic_size={utterances}", "featurizer.global_stats=''"])
+    stats = workdir / "global_features.json"
+    res = cli_cgf.main(["--config", str(stats_yaml), "--out", str(stats),
+                        "--max-utterances", str(utterances), "--device", str(device)])
+    mean, inv = res["means"], res["invstddev"]
+    if not (np.isfinite(mean).all() and np.isfinite(inv).all() and (inv > 0).all()):
+        raise AssertionError("calc_global_features: non-finite statistics or invstddev <= 0")
+    few = {}
+    for dev in (str(device), "cpu"):
+        few[dev] = cli_cgf.main(["--config", str(stats_yaml), "--out",
+                                 str(workdir / f"global_features_{dev}.json"),
+                                 "--max-utterances", str(check_utterances), "--device", dev])
+    rel = max(float(np.max(np.abs(few[str(device)][k] - few["cpu"][k])
+                           / np.maximum(np.abs(few["cpu"][k]), 1e-30)))
+              for k in ("means", "invstddev"))
+    if not rel <= STATS_RTOL:
+        raise AssertionError(f"calc_global_features: {device} against the CPU on "
+                             f"{check_utterances} utterances, max relative gap {rel:.3e}")
+    out["global_features"] = dict(
+        utterances=res["utterances"], frames=res["frames"], seconds=res["seconds"],
+        utterances_per_s=res["utterances"] / res["seconds"], channels=len(mean),
+        mean_range=[float(mean.min()), float(mean.max())],
+        invstddev_range=[float(inv.min()), float(inv.max())],
+        check=dict(utterances=check_utterances, max_rel_gap=rel,
+                   cpu_seconds=few["cpu"]["seconds"]))
+    log(f"tools (a): calc_global_features on {device}: {res['utterances']} utterances, "
+        f"{res['frames']} frames in {res['seconds']:.3f} s "
+        f"({res['utterances'] / res['seconds']:.1f} utterances/s); means in "
+        f"[{mean.min():.3f}, {mean.max():.3f}], invstddev in [{inv.min():.4f}, "
+        f"{inv.max():.4f}]; {check_utterances} utterances against the CPU: max relative "
+        f"gap {rel:.2e}")
+
+    # (b) cli.train --profile on the statistics, streamed, async checkpoints.
+    train_yaml, tcfg = yaml_of("tools_train", config, list(overrides) + [
+        f"data.synthetic_size={utterances}", f"featurizer.global_stats={stats}",
+        "training.checkpoint_steps=3", "training.hist_steps=3"])
+    exp = workdir / "exp_tools"
+    counts_to_zero()
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        cli_train.main(["--config", str(train_yaml), "--output-base", str(exp),
+                        "--max-steps", str(steps), "--device", str(device), "--profile"])
+    sync(device)
+    secs = time.time() - t
+    said = buf.getvalue()
+    launches = {k.name: k.launches for k in kernels}
+    native = "host tokenizer native C++" in said
+    if on_card and not native:
+        raise AssertionError("cli.train: the native tokenizer did not load on the card's "
+                             f"machine: {next(l for l in said.splitlines() if 'tokenizer' in l)}")
+    if "device sample cache:" in said:
+        raise AssertionError("globalfeat: the corpus was cached; the host recipe must stream")
+    run_dir = _latest_run(exp, tcfg.model_name)
+    st = _read_steps(run_dir)
+    if [s["step"] for s in st] != list(range(1, steps + 1)):
+        raise AssertionError(f"globalfeat: steps {[s['step'] for s in st]}")
+    for s in st:
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])):
+            raise AssertionError(f"globalfeat: non-finite step {s}")
+        must_launch(f"globalfeat step {s['step']}", s["launches"], each=1)
+    saved = sorted(p.name for p in run_dir.iterdir() if p.is_dir() and p.name != "trace")
+    want = [f"checkpoint_step_{s}" for s in sorted({3, 6, steps})]
+    if saved != want:
+        raise AssertionError(f"globalfeat: checkpoint directories {saved}, expected {want}")
+    for name in want:
+        files = sorted(p.name for p in (run_dir / name).iterdir())
+        if files != ["config.yaml", "opt_state.npz", "params.npz"]:
+            raise AssertionError(f"globalfeat: {name} holds {files}")
+    traced = trace_steps(run_dir / "trace" / "rank0.json.gz", kernels)
+    if [s["step"] for s in traced["steps"]] != [3, 4, 5, 6]:
+        raise AssertionError(f"globalfeat trace: steps {[s['step'] for s in traced['steps']]}")
+    for s in traced["steps"]:
+        must_launch(f"globalfeat trace step {s['step']}", s["launches"], each=1)
+    ev = cli_eval.main([str(run_dir / want[-1]), "--device", str(device), "--batch-size",
+                        str(eval_batch), "--max-elements", str(2 * eval_batch)])
+    if not math.isfinite(ev["wer"]):
+        raise AssertionError(f"cli.eval on {want[-1]}: WER {ev['wer']}")
+    parts = {p: statistics.mean(s["parts_ms"][p] for s in traced["steps"])
+             for p in ("data", "train_step", "bookkeeping")}
+    out["globalfeat"] = dict(
+        seconds=secs, step_seconds=[s["seconds"] for s in st],
+        audio_s_per_s=[s["audio_s_per_s"] for s in st], loss=[s["loss"] for s in st],
+        launches_per_step={k.name: [s["launches"].get(k.name, 0) for s in st]
+                           for k in kernels},
+        launches=launches, native_tokenizer=native, checkpoints=want,
+        eval_wer=ev["wer"], trace=dict(
+            steps=[{k: s[k] for k in ("step", "host_ms", "parts_ms", "launches",
+                                      "kernels")} for s in traced["steps"]],
+            parts_ms_mean=parts, device_ms_per_step=traced["steps"][-1]["device_ms"],
+            busy_share=traced["busy_share"], bytes=traced["bytes"]))
+    log(f"tools (b): cli.train --profile on {config}: {steps} steps in {secs:.1f} s (start-up, "
+        f"trace, eval, saves); step seconds {[round(s['seconds'], 4) for s in st]}; host "
+        f"tokenizer {'native C++' if native else 'Python'}; checkpoints {want} complete; "
+        f"cli.eval WER {ev['wer']:.4f}; trace of steps 3-6: host ms by part {parts}, "
+        f"device busy {100 * traced['busy_share']:.1f} % of the steps' wall, K1-K4 once a "
+        f"step ({traced['steps'][-1]['launches']}), {traced['bytes'] / 2**20:.1f} MiB")
+
+    # (c) 2 ranks on the card over gloo, each streaming its own shard.
+    ranks_dir = workdir / "exp_tools_ranks"
+    args = ["--config", str(train_yaml), "--output-base", str(ranks_dir), "--max-steps",
+            str(rank_steps), "--set", "mesh.data=2"] + (
+        ["--device", "cuda:0", "--dist-backend", "gloo"] if on_card else ["--device", "cpu"])
+    log_path = workdir / "tools_ranks.log"
+    t = time.time()
+    run_ranks(2, args, log_path)
+    secs2 = time.time() - t
+    lines = SHARD_LINE.findall(log_path.read_text())
+    shards = {int(r): dict(shard=int(d), of=int(n), rows_loaded=int(rows),
+                           batches=int(b), rows_per_batch=int(rb))
+              for r, d, n, rows, b, rb in lines}
+    G = tcfg.training.global_batch_size
+    if sorted(shards) != [0, 1] or any(
+            s["shard"] != r or s["of"] != 2 or s["rows_per_batch"] != G // 2
+            or s["batches"] != rank_steps or s["rows_loaded"] > -(-utterances // 2)
+            for r, s in shards.items()):
+        raise AssertionError(f"2 ranks: each rank's shard lines {shards}")
+    run2 = _latest_run(ranks_dir, tcfg.model_name)
+    recs = [json.loads(x) for x in (run2 / "metrics.jsonl").read_text().splitlines()]
+    st2 = _read_steps(run2)
+    norms = [r["total_norm_by_rank/train"] for r in recs if "total_norm_by_rank/train" in r]
+    gaps = [abs(a - b) / abs(a) for a, b in norms]
+    if len(norms) != rank_steps or not all(g <= 1e-6 for g in gaps):
+        raise AssertionError(f"2 ranks: gradient norms by rank {norms}")
+    for s in st2:
+        if not math.isfinite(s["loss"]):
+            raise AssertionError(f"2 ranks: non-finite step {s}")
+        for name in JOINT_LATTICE if on_card else ():
+            if s["by_rank"].get(name) != [1, 1]:
+                raise AssertionError(f"2 ranks step {s['step']}: {name} launched "
+                                     f"{s['by_rank'].get(name)} times on the ranks")
+    out["two_ranks"] = dict(
+        seconds=secs2, step_seconds=[s["seconds"] for s in st2],
+        audio_s_per_s=[s["audio_s_per_s"] for s in st2], grad_norms=norms,
+        shards=shards, launches_per_step={k.name: [s["by_rank"].get(k.name) for s in st2]
+                                          for k in kernels})
+    log(f"tools (c): 2 ranks sharing {device} over gloo, {rank_steps} steps in {secs2:.1f} s; "
+        f"step seconds {[round(s['seconds'], 4) for s in st2]}; gradient norms by rank "
+        f"{norms}; shards {shards}")
+
+    # (d) cli.sweep: 2 trials of the full-width model.
+    sweep_yaml, scfg = yaml_of("tools_sweep", sweep_config, sweep_overrides)
+    counts_to_zero()
+    t = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as sbuf:
+        trials = cli_sweep.main(["--config", str(sweep_yaml), "--trials", "2", "--max-steps",
+                                 str(sweep_steps), "--study", str(workdir / "sweep.jsonl"),
+                                 "--output-base", str(workdir / "exp_sweep"),
+                                 "--device", str(device)])
+    secs3 = time.time() - t
+    sweep_launches = {k.name: k.launches for k in kernels}
+    failed = [ln for ln in sbuf.getvalue().splitlines() if " failed: " in ln]
+    if len(trials) != 2 or failed or not all(math.isfinite(tr["wer"]) for tr in trials):
+        raise AssertionError(f"sweep: trials {trials}; {failed}")
+    must_launch("sweep", sweep_launches)
+    per_trial = []
+    for tr in trials:
+        st3 = _read_steps(_latest_run(workdir / "exp_sweep",
+                                      f"{scfg.model_name}_sweep{tr['trial']}"))
+        for s in st3:
+            must_launch(f"sweep trial {tr['trial']} step {s['step']}", s["launches"])
+        per_trial.append(dict(trial=tr["trial"], wer=tr["wer"],
+                              rnnt_grad_clamp=tr["params"]["training.rnnt_grad_clamp"],
+                              params=tr["params"], step_seconds=[s["seconds"] for s in st3],
+                              launches_per_step={k.name: [s["launches"].get(k.name, 0)
+                                                          for s in st3] for k in kernels}))
+    out["sweep"] = dict(seconds=secs3, seconds_per_trial=secs3 / 2, trials=per_trial,
+                        launches=sweep_launches)
+    log(f"tools (d): cli.sweep on {sweep_config}, 2 trials x {sweep_steps} steps in "
+        f"{secs3:.1f} s: " + "; ".join(
+            f"trial {p['trial']} WER {p['wer']:.4f}, rnnt_grad_clamp "
+            f"{p['rnnt_grad_clamp']:.4f}, step seconds "
+            f"{[round(x, 4) for x in p['step_seconds']]}" for p in per_trial)
+        + f"; launches {sweep_launches}")
+
+    # (e) the augmentation renders (host only).
+    renders = cli_render.main(["--out", str(workdir / "renders")])
+    wavs = sorted(p.name for p in renders.glob("*.wav"))
+    if len(wavs) != 15 or not (renders / "index.html").exists():
+        raise AssertionError(f"render_augments: {wavs}")
+    out["render_augments"] = dict(wavs=len(wavs))
+    out["seconds"] = time.time() - t_phase
+    log(f"tools: phase {out['seconds']:.1f} s")
     return out
 
 
@@ -3482,10 +3824,10 @@ TRACE_GROUPS = (("K1", r"gemm_kernel<[^>]*LsePass>|::fwd_h_kernel\("),
                 ("convolutions", r"(?i)conv|cudnn|fprop|dgrad|wgrad"))
 
 
-def busy_us(kernels) -> float:
+def busy_us(kernels=(), spans=()) -> float:
     """Microseconds in which at least one of the profiler's device events
-    ``kernels`` ran (their union)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    ``kernels``, or of the (start, end) ``spans``, ran (their union)."""
+    spans = sorted([(e.time_range.start, e.time_range.end) for e in kernels] + list(spans))
     if not spans:
         return 0.0
     total, cur_s, cur_e = 0.0, *spans[0]
@@ -3742,6 +4084,7 @@ def main() -> None:
         decode["lstm"] = lstm_phase(Path(tmp), device, kernels + [K6, K7])
         train = train_phase(Path(tmp), device, kernels)
         grad_phase(device, kernels, train)
+        tools = tools_phase(Path(tmp), device, kernels + [K6, K7])
         ranks = multi_rank_phase(Path(tmp), device, train)
         ranks["exchange"] = exchange_phase(Path(tmp), flagship_params(train),
                                            tp=tp_dims(train["vocab"]))
@@ -3777,8 +4120,14 @@ def main() -> None:
             shape=m["shape"], **extra))
     entries[-1]["augment_call"] = augment
     for e in entries:
-        e["launches_per_step"]["bundle (export and runtime)"] = bundle["launches"][
-            e["name"].split()[1]]
+        name = e["name"].split()[1]
+        e["launches_per_step"]["bundle (export and runtime)"] = bundle["launches"][name]
+        e["launches_per_step"]["tools: globalfeat --profile"] = (
+            tools["globalfeat"]["launches_per_step"][name])
+        e["launches_per_step"]["tools: globalfeat, 2 ranks (per rank)"] = (
+            tools["two_ranks"]["launches_per_step"][name])
+        e["launches_per_step"]["tools: sweep (per trial)"] = [
+            t["launches_per_step"][name] for t in tools["sweep"]["trials"]]
     for e, k in zip(entries[:2], ("k1", "k2")):
         e["slice_cases"] = {tag: dict(
             shape=c["shape"], parts=c["parts"],
@@ -3808,7 +4157,14 @@ def main() -> None:
             name=f"{key} {k.name}", route="cuda", source=f"rnnt_tpu_torch/csrc/{k.name}.cu",
             replaces=k.replaces, launches=sum(map(sum, by_rank)),
             launches_per_step={"tshard (per rank)": by_rank,
-                               "bundle (export and runtime)": bundle["launches"][k.name]},
+                               "bundle (export and runtime)": bundle["launches"][k.name],
+                               "tools: globalfeat --profile":
+                                   tools["globalfeat"]["launches_per_step"][k.name],
+                               "tools: globalfeat, 2 ranks (per rank)":
+                                   tools["two_ranks"]["launches_per_step"][k.name],
+                               "tools: sweep (per trial)": [
+                                   t["launches_per_step"][k.name]
+                                   for t in tools["sweep"]["trials"]]},
             max_abs_err=max(ev[f"err{key[1]}"], lg[f"err{key[1]}"]),
             ms=statistics.mean(m[f"{plain}_ms"] for m in ev["shards"]),
             plain_ms=statistics.mean(m[f"{plain}_plain_ms"] for m in ev["shards"]),
@@ -3842,6 +4198,7 @@ def main() -> None:
     print(json.dumps({"serve": serve}))
     print(json.dumps({"bundle": bundle}))
     print(json.dumps({"decode": decode}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

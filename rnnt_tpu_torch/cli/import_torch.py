@@ -74,7 +74,8 @@ def main(argv=None) -> Path:
     ap.add_argument("pt", help="reference checkpoint_step_N.pt")
     ap.add_argument("out", help="output checkpoint base directory")
     ap.add_argument("--config", default="base_convjs",
-                    help="config name or yaml path describing the model")
+                    help="config name (in rnnt_tpu_torch/config/configs) or yaml "
+                         "path describing the model")
     ap.add_argument("--set", action="append", default=[], dest="overrides",
                     metavar="KEY=VALUE", help="config override (repeatable)")
     ap.add_argument("--step", type=int, default=None,

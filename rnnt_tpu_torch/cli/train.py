@@ -2,10 +2,13 @@
 
 Port of ``rnnt_tpu/cli/train.py``: ``--resume`` a checkpoint directory,
 ``--max-steps`` for short runs, ``--output-base`` for the run directories,
-``--set key.path=value`` config overrides, and ``--device`` (CUDA unless
-``--device cpu``; without CUDA it raises).  Prints the final WER.  TF32 is
-off for float32 matmuls and cuDNN convolutions (both flags set, and said
-once at start), so fp32 training means fp32.
+``--set key.path=value`` config overrides, ``--profile`` (a torch.profiler
+trace of steps 3-6 into ``<run_dir>/trace``), and ``--device`` (CUDA
+unless ``--device cpu``; without CUDA it raises).  Prints the final WER.
+TF32 is off for float32 matmuls and cuDNN convolutions (both flags set),
+so fp32 training means fp32; the start-up line says so, and whether the
+host tokenizer encodes in C++ (``rnnt_tpu_torch/native``, built by g++)
+or in Python.
 
 Under ``python -m torch.distributed.run --nproc-per-node N -m
 rnnt_tpu_torch.cli.train ...`` every rank reads torchrun's environment
@@ -30,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from rnnt_tpu_torch.config.config import apply_overrides, load_config, resolve_config
+from rnnt_tpu_torch.native import load_error, load_native
 from rnnt_tpu_torch.train.loop import train
 from rnnt_tpu_torch.utils import resolve_device
 
@@ -68,10 +72,13 @@ def init_distributed(dev: torch.device, backend: str | None, rank: int,
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default="base_convjs",
-                    help="config name (in rnnt_tpu/config/configs) or path")
+                    help="config name (in rnnt_tpu_torch/config/configs) or path")
     ap.add_argument("--resume", default=None, help="checkpoint dir to resume")
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--output-base", default="experiments")
+    ap.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace of steps 3-6 into "
+                         "<run_dir>/trace (gzipped Chrome trace, one file a rank)")
     ap.add_argument("--set", action="append", default=[], dest="overrides",
                     metavar="KEY.PATH=VALUE",
                     help="dotted config override, e.g. "
@@ -93,11 +100,13 @@ def main(argv=None) -> float:
     backend = init_distributed(dev, args.dist_backend, rank, world) if world > 1 else None
     try:
         if rank == 0:
+            tokenizer = ("native C++" if load_native() is not None
+                         else f"Python (no native library: {load_error()})")
             print(f"device {dev}" + (f" (rank 0 of {world}, {backend})" if backend else "")
                   + "; TF32 off (torch.backends.cuda.matmul.allow_tf32 = "
-                  "torch.backends.cudnn.allow_tf32 = False)")
+                  f"torch.backends.cudnn.allow_tf32 = False); host tokenizer {tokenizer}")
         final_wer = train(cfg, output_base=args.output_base, resume=args.resume,
-                          max_steps=args.max_steps, device=dev)
+                          max_steps=args.max_steps, device=dev, profile=args.profile)
     finally:
         if backend is not None:
             dist.destroy_process_group()

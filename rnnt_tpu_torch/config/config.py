@@ -2,11 +2,11 @@
 
 The port's own copy of ``rnnt_tpu/config/config.py``: the same dataclass
 schema, ``load_config``, Hydra-style ``apply_overrides``, and the spec
-builders, returning the port's spec classes.  It reads the same YAML files
-(``rnnt_tpu/config/configs/*.yaml``) as data and never edits them.  Fields
-that select paths not ported yet (the LSTM predictor) are kept so that
-every config parses and builds the same spec; ``check_mesh`` holds the
-guards of a multi-rank run.
+builders, returning the port's spec classes.  It reads its own copies of
+the JAX package's YAML files (``rnnt_tpu_torch/config/configs/*.yaml``,
+byte-equal to them).  Every field is kept, so every config parses and
+builds the same spec; ``check_mesh`` holds the guards of a multi-rank
+run.
 """
 
 from __future__ import annotations
@@ -24,12 +24,12 @@ from rnnt_tpu_torch.models.predictor import ConvPredictorSpec, LSTMPredictorSpec
 from rnnt_tpu_torch.models.rnnt import RNNTSpec
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec
 
-# The YAML configs are shared with the JAX package and read as data.
-CONFIG_DIR = Path(__file__).resolve().parents[2] / "rnnt_tpu" / "config" / "configs"
+# The port's own copies of the named YAML configs.
+CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 
 
 def resolve_config(name: str | Path) -> Path:
-    """A config name (``base_convjs``) in the shared config directory, or a
+    """A config name (``base_convjs``) in ``CONFIG_DIR``, or a
     path to a YAML file."""
     p = Path(name)
     if p.suffix in (".yaml", ".yml") and p.exists():

@@ -5,8 +5,10 @@ the wire formats (int16 at ``WIRE_SCALE``, 8-bit mu-law at half scale),
 the deterministic synthetic corpus, (samples, tokens) buckets and the
 ``BatchIterator`` that augments (host recipe, per-row RNG), tokenizes,
 bucket-pads and collates numpy batches exactly as the JAX package does,
-serially or over a thread or process pool.  The Hugging Face corpus
-loaders are not ported yet.
+serially or over a thread or process pool; and the Hugging Face corpus
+loaders (``librispeech_dataset``, ``commonvoice_dataset``) with
+``concatenate_rows``, which import ``datasets`` when called, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -92,6 +94,69 @@ def synthetic_piece_table(n_pieces: int = 1023) -> dict[int, str]:
     return dict(enumerate(pieces))
 
 
+def librispeech_dataset(splits: Sequence[str], cache_dir: str = ""):
+    """Hugging Face ``librispeech_asr`` splits, concatenated."""
+    import datasets as hf_datasets
+
+    parts = [hf_datasets.load_dataset("librispeech_asr", cache_dir=cache_dir or None,
+                                      split=split) for split in splits]
+    if len(parts) == 1:
+        return parts[0]
+    return hf_datasets.concatenate_datasets(parts)
+
+
+def commonvoice_dataset(split: str, cache_dir: str = ""):
+    """CommonVoice 16.1 (en) cast to 16 kHz audio, ``sentence`` copied to
+    ``text``."""
+    import datasets as hf_datasets
+
+    ds = hf_datasets.load_dataset(
+        "mozilla-foundation/common_voice_16_1", "en", split=split,
+        cache_dir=cache_dir or None)
+    ds = ds.cast_column("audio", hf_datasets.Audio(sampling_rate=16_000))
+
+    def fixup(row):
+        row["text"] = row["sentence"]
+        return row
+
+    return ds.map(fixup)
+
+
+class _ConcatRows:
+    """Row datasets (Hugging Face datasets or row lists) behind one
+    ``__len__`` / ``__getitem__``, whatever their other columns, so mixed
+    corpora compose."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self._offsets = []
+        total = 0
+        for p in self.parts:
+            total += len(p)
+            self._offsets.append(total)
+
+    def __len__(self):
+        return self._offsets[-1] if self._offsets else 0
+
+    def __getitem__(self, idx):
+        if idx < 0:
+            idx += len(self)
+        lo = 0
+        for part, off in zip(self.parts, self._offsets):
+            if idx < off:
+                return part[idx - lo]
+            lo = off
+        raise IndexError(idx)
+
+
+def concatenate_rows(parts):
+    """One dataset of ``parts``; a single part passes through as it is."""
+    parts = list(parts)
+    if len(parts) == 1:
+        return parts[0]
+    return _ConcatRows(parts)
+
+
 @dataclass
 class Buckets:
     """Static-shape padding targets: samples (audio) and tokens (text)."""
@@ -159,7 +224,9 @@ class BatchIterator:
     threads (``worker_mode="thread"``; numpy and scipy release the GIL) or
     of forked processes (``"process"``).  The per-row RNG makes serial,
     thread and process runs give identical batches.  ``shard_id`` /
-    ``num_shards`` take a disjoint stride of the shuffled epoch order."""
+    ``num_shards`` take a disjoint stride of the shuffled epoch order;
+    ``rows_loaded`` counts the rows an iteration has loaded (and
+    augmented) so far."""
 
     def __init__(self, dataset, tokenizer: UnigramTokenizer, buckets: Buckets,
                  batch_size: int, *, augmentor=None, shuffle: bool = True,
@@ -187,6 +254,7 @@ class BatchIterator:
         self.shard_id = shard_id
         self.num_shards = num_shards
         self.wire_dtype = wire_dtype
+        self.rows_loaded = 0
 
     def _process(self, idx: int):
         """Load, augment and tokenize one utterance (thread-safe: a fresh
@@ -229,8 +297,10 @@ class BatchIterator:
         rows, pool = self._rows(order)
         pending: dict[tuple[int, int], list] = {}
         emitted = 0
+        self.rows_loaded = 0
         try:
             for audio, tokens in rows:
+                self.rows_loaded += 1
                 if len(tokens) == 0:
                     continue
                 b = self.buckets.pick(len(audio), len(tokens))

@@ -1,18 +1,23 @@
-"""SentencePiece-compatible unigram tokenizer, pure Python.
+"""SentencePiece-compatible unigram tokenizer.
 
-The port's own copy of ``rnnt_tpu/data/tokenizer.py`` without the native
-C++ fast path: it reads a SentencePiece ``.model`` protobuf directly (only
-the pieces list) or an id->piece JSON, encodes by Viterbi over the piece
-scores with a dummy-prefix space and U+2581 word-boundary pieces (unknown
-characters score min_score - 10, runs of them fuse into one <unk>), and
-decodes by joining pieces.
+The port's own copy of ``rnnt_tpu/data/tokenizer.py``: it reads a
+SentencePiece ``.model`` protobuf directly (only the pieces list) or an
+id->piece JSON, encodes by Viterbi over the piece scores with a
+dummy-prefix space and U+2581 word-boundary pieces (unknown characters
+score min_score - 10, runs of them fuse into one <unk>), and decodes by
+joining pieces.  Encoding runs in the C++ tokenizer of
+``rnnt_tpu_torch/native`` when g++ could build it, else in Python, as in
+the JAX package; ``UnigramTokenizer.native`` says which.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import struct
 from pathlib import Path
+
+from rnnt_tpu_torch.native import load_native
 
 # SentencePiece piece types (sentencepiece_model.proto).
 _NORMAL = 1
@@ -110,6 +115,29 @@ class UnigramTokenizer:
         # <unk> piece's own score), so known pieces win when available.
         min_score = min((s for _, (_, s) in self._seg.items()), default=0.0)
         self._unk_score = min_score - 10.0
+        self._native = None
+        self._init_native()
+
+    @property
+    def native(self) -> bool:
+        """Whether ``encode`` runs in the C++ tokenizer."""
+        return self._native is not None
+
+    def _init_native(self) -> None:
+        """Hand the segmentable pieces to the C++ tokenizer (the piece
+        table wire format of ``native/tokenizer.cc``); without a library
+        ``encode`` stays in Python."""
+        lib = load_native()
+        if lib is None:
+            return
+        parts = [struct.pack("<i", len(self._seg))]
+        for piece, (pid, score) in self._seg.items():
+            raw = piece.encode("utf-8")
+            parts.append(struct.pack("<ifi", pid, score, len(raw)) + raw)
+        blob = b"".join(parts)
+        handle = lib.rnnt_tok_create(blob, len(blob), self.unk_id, self._unk_score)
+        if handle:
+            self._native = (lib, handle)
 
     @classmethod
     def from_file(cls, path: str | Path) -> "UnigramTokenizer":
@@ -132,8 +160,17 @@ class UnigramTokenizer:
         return _WS + text.replace(" ", _WS)
 
     def encode(self, text: str) -> list[int]:
-        """Viterbi best segmentation -> ids."""
-        return self._fuse_unk(self._encode_py(self._normalize(text)))
+        """Viterbi best segmentation -> ids (in C++ when built)."""
+        s = self._normalize(text)
+        if self._native is not None:
+            lib, handle = self._native
+            raw = s.encode("utf-8")
+            max_out = len(raw) + 8
+            out = (ctypes.c_int32 * max_out)()
+            n = lib.rnnt_tok_encode(handle, raw, len(raw), out, max_out)
+            if n >= 0:
+                return self._fuse_unk(list(out[:n]))
+        return self._fuse_unk(self._encode_py(s))
 
     def _fuse_unk(self, ids: list[int]) -> list[int]:
         """SentencePiece merges runs of adjacent unknown characters into

@@ -94,7 +94,8 @@ class CudaKernel:
     def launch(self, *args) -> None:
         """Call the C entry point with ``args`` (tensors become their data
         pointers; every tensor must lie on one CUDA device) on that
-        device's current stream, with that device current; raise on a CUDA
+        device's current stream, with that device current, inside a
+        ``launch <name>`` span of the profiler's trace; raise on a CUDA
         error; count the launch."""
         devices = {a.device for a in args if isinstance(a, torch.Tensor)}
         if len(devices) != 1:
@@ -102,7 +103,7 @@ class CudaKernel:
                              "expected one CUDA device")
         (dev,) = devices
         c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), torch.profiler.record_function(f"launch {self.name}"):
             stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
             err = self.fn()(*c_args, stream)
         if err != 0:

@@ -15,19 +15,33 @@ Port of ``rnnt_tpu/train/loop.py``:
   from a ``BatchIterator`` with the data's worker pool behind a
   ``PrefetchIterator``), epochs in the cache's or the iterator's order
   (seed = epoch), the pruned-warmup switch by step, metrics to
-  ``metrics.jsonl`` and stdout every ``log_steps``, the NaN guard with its
-  emergency checkpoint, periodic eval and checkpoints, a final checkpoint,
-  and the last WER returned.  Each step's record in ``metrics.jsonl`` also
+  ``metrics.jsonl`` and stdout every ``log_steps``, TensorBoard histograms
+  of the parameters every ``hist_steps`` (with tensorboardX), the NaN
+  guard with its emergency checkpoint, periodic eval, asynchronous
+  periodic checkpoints (``train/checkpoint.py``), a final checkpoint that
+  waits, and the last WER returned; ``profile=True`` writes a
+  torch.profiler trace of steps 3-6 (``trace/rank<r>.json.gz``, each step a
+  ``step N`` span split into ``data``, ``train_step`` and
+  ``bookkeeping``).  Each step's record in ``metrics.jsonl`` also
   holds ``launches/<kernel>``, the hand-written kernels' launches in that
   step on rank 0 (0 on the CPU, where their plain versions run), and on
-  more than one rank ``launches_by_rank/<kernel>``, every rank's; an
-  eval's record holds ``eval_launches/<kernel>``.
+  more than one rank ``launches_by_rank/<kernel>`` and
+  ``total_norm_by_rank/train``, every rank's; an eval's record holds
+  ``eval_launches/<kernel>``.
 
-On more than one rank every rank caches the corpus on its own card (the
-reference replicates its cache over the mesh, ``data/device_cache.py:19``,
-but downgrades an explicit ``staging: device`` to streaming on multi-process
-runs, ``:295``; the port does not) or streams the whole global batch, and
-takes its ``data`` rows of the same global batch.  Logging,
+On more than one rank every rank caches the whole corpus on its own card
+(the reference replicates its cache over the mesh,
+``data/device_cache.py:19``, but downgrades an explicit ``staging:
+device`` to streaming on multi-process runs, ``:295``; the port does not)
+and takes its ``data`` rows of each global batch; or, streaming, loads
+and host-augments only its data shard of the epoch (``stream_batches``,
+as the reference shards per process, ``loop.py:465-474``): each rank of
+a model group the same shard, each row with the same per-row
+augmentation draws on any rank.  The shards bucket apart after
+augmentation changes lengths, so their batch counts in an epoch differ:
+every step the ranks agree in one all-reduce that each still has a
+batch (and sum the global batch's audio seconds), and all end the epoch
+when one has none (the reference has no such agreement).  Logging,
 ``metrics.jsonl``, evaluation and checkpoint saves happen on rank 0 with
 barriers around them; a resume restores on every rank.
 
@@ -44,6 +58,7 @@ gathered whole model (``parallel/mesh.whole_model``), not sharded.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -53,6 +68,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rnnt_tpu_torch.compat.jax_params import flatten_tree, to_jax
 from rnnt_tpu_torch.config.config import (
     Config,
     build_featurizer_spec,
@@ -67,7 +83,14 @@ from rnnt_tpu_torch.data.augment_device import (
     host_only_default_augmentor,
     warn_stripped_param_mismatch,
 )
-from rnnt_tpu_torch.data.dataset import BatchIterator, Buckets, synthetic_dataset
+from rnnt_tpu_torch.data.dataset import (
+    BatchIterator,
+    Buckets,
+    commonvoice_dataset,
+    concatenate_rows,
+    librispeech_dataset,
+    synthetic_dataset,
+)
 from rnnt_tpu_torch.data.device_cache import DeviceSampleCache, gather_rows
 from rnnt_tpu_torch.data.pipeline import PrefetchIterator
 from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer
@@ -76,6 +99,7 @@ from rnnt_tpu_torch.models.rnnt import RNNT, rnnt_init
 from rnnt_tpu_torch.ops.kernels import launch_counts
 from rnnt_tpu_torch.parallel.mesh import (
     Mesh,
+    all_reduce_sum,
     make_mesh,
     replica_digests,
     shard_opt_state,
@@ -85,6 +109,7 @@ from rnnt_tpu_torch.parallel.mesh import (
 from rnnt_tpu_torch.train import checkpoint as ckpt
 from rnnt_tpu_torch.train.metrics import wer
 from rnnt_tpu_torch.train.optim import make_optimizer
+from rnnt_tpu_torch.train.profiling import start_trace, stop_trace
 from rnnt_tpu_torch.train.step import (
     TrainState,
     batch_to_device,
@@ -104,19 +129,35 @@ def _load_tokenizer(cfg: Config) -> UnigramTokenizer:
 
 
 def _load_datasets(cfg: Config):
-    """(train, eval) row datasets.  Only the synthetic corpus is ported."""
+    """(train, eval) row datasets: the synthetic corpus, or Hugging Face
+    librispeech / commonvoice splits.  A split may name its corpus
+    (``"commonvoice:train"``, ``"librispeech:train.clean.100"``), as the
+    mixed fullcausal recipe does; an unprefixed split is
+    ``data.dataset``'s."""
     dc = cfg.data
-    if dc.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {dc.dataset!r} is not ported to rnnt_tpu_torch yet; "
-            "use data.dataset=synthetic")
-    train = synthetic_dataset(dc.synthetic_size, dc.synthetic_seconds,
-                              seed=0, max_words=dc.synthetic_max_words)
-    if dc.eval_on_train:
-        return train, train
-    evals = synthetic_dataset(max(dc.synthetic_size // 8, 8),
-                              dc.synthetic_seconds, seed=1,
-                              max_words=dc.synthetic_max_words)
+    if dc.dataset == "synthetic":
+        train = synthetic_dataset(dc.synthetic_size, dc.synthetic_seconds,
+                                  seed=0, max_words=dc.synthetic_max_words)
+        if dc.eval_on_train:
+            return train, train
+        evals = synthetic_dataset(max(dc.synthetic_size // 8, 8),
+                                  dc.synthetic_seconds, seed=1,
+                                  max_words=dc.synthetic_max_words)
+        return train, evals
+    if dc.dataset not in ("librispeech", "commonvoice"):
+        raise ValueError(f"unknown dataset {dc.dataset}")
+
+    def load(split: str):
+        corpus, _, name = split.rpartition(":")
+        corpus = corpus or dc.dataset
+        if corpus == "librispeech":
+            return librispeech_dataset([name], dc.cache_dir)
+        if corpus == "commonvoice":
+            return commonvoice_dataset(name, dc.cache_dir)
+        raise ValueError(f"unknown corpus prefix {corpus!r} in split {split!r}")
+
+    train = concatenate_rows([load(s) for s in dc.train_splits])
+    evals = train if dc.eval_on_train else load(dc.eval_split)
     return train, evals
 
 
@@ -214,10 +255,37 @@ class MetricsLogger:
         self.jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
         self.jsonl.flush()
 
+    def log_histograms(self, step: int, model: RNNT, prefix: str = "weights") -> None:
+        """A TensorBoard histogram of every parameter, tagged with its JAX
+        pytree path (``weights/encoder/blocks/0/...``, as the JAX package
+        tags it), so one TensorBoard reads both packages' runs; nothing
+        without tensorboardX."""
+        if self.writer is None:
+            return
+        params, _ = to_jax(model)
+        for name, leaf in flatten_tree(params).items():
+            self.writer.add_histogram(f"{prefix}/{name}", np.asarray(leaf).ravel(), step)
+
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
         self.jsonl.close()
+
+
+def stream_batches(cfg: Config, train_ds, tokenizer, buckets, augmentor, epoch: int,
+                   mesh: Mesh) -> BatchIterator:
+    """The streamed batches of this rank in one epoch: its data shard
+    (``shard_id`` = its data rank of ``mesh.data``, the same on every rank
+    of its model group, which needs the same rows) of the epoch's order, in
+    batches of ``global_batch_size / mesh.data`` rows, loaded and
+    host-augmented here only, as the JAX package shards per process."""
+    return BatchIterator(train_ds, tokenizer, buckets,
+                         batch_size=cfg.training.global_batch_size // mesh.data,
+                         augmentor=augmentor, shuffle=True, seed=epoch,
+                         num_workers=cfg.data.num_workers,
+                         worker_mode=cfg.data.worker_mode,
+                         shard_id=mesh.data_rank, num_shards=mesh.data,
+                         wire_dtype=cfg.data.wire_dtype)
 
 
 def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
@@ -305,7 +373,7 @@ def build_cache(cfg: Config, train_ds, tokenizer, buckets, fspec, augmentor,
 
 def train(cfg: Config, *, output_base: str | Path = "experiments",
           resume: str | None = None, max_steps: int | None = None,
-          device=None, make_augmentor=None) -> float:
+          device=None, make_augmentor=None, profile: bool = False) -> float:
     """Train per ``cfg`` on this rank's card (CUDA unless ``device="cpu"``);
     return the last eval WER.
 
@@ -314,9 +382,9 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
     ``make_augmentor(cfg)``, when given, builds the host augmentor.  The
     ``mesh`` section lays the ranks of the initialised process group (one
     rank without one) out as data x model; a mesh that does not match the
-    group, and a non-synthetic dataset, raise.  Rank 0 writes
+    group, and an unknown dataset, raise.  Rank 0 writes
     ``<output_base>/<model>/run-N`` with config.yaml, metrics.jsonl and
-    ``checkpoint_step_<step>`` directories."""
+    ``checkpoint_step_<step>`` directories; ``profile`` adds ``trace/``."""
     dev = resolve_device(device)
     mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
     check_mesh(cfg, mesh.data, mesh.model)
@@ -398,7 +466,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             raise FloatingPointError(
                 f"non-finite loss {last_loss} at step {pending[-1][0]}; "
                 f"emergency checkpoint saved to {output_dir}")
-        mine = [launched for _, _, launched in pending]
+        mine = [dict(launched, grad_norm=float(m["grad_norm"])) for _, m, launched in pending]
         by_rank = [mine]
         if mesh.world > 1:
             by_rank = [None] * mesh.world
@@ -418,6 +486,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             if mesh.world > 1:
                 scalars.update({f"launches_by_rank/{k}": [r[i][k] for r in by_rank]
                                 for k in launched})
+                scalars["total_norm_by_rank/train"] = [r[i]["grad_norm"] for r in by_rank]
             logger.log(s, scalars)
         sps = len(pending) / dt if dt > 0 else 0.0
         asps = audio_secs / dt if dt > 0 else 0.0
@@ -452,10 +521,12 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         last_wer = _from_main(mesh, last_wer)
         t_log = time.time()
 
-    def write(st: TrainState) -> None:
+    def write(st: TrainState, wait: bool = True) -> None:
         """Rank 0 writes the whole state: on a tensor-parallel mesh every
         rank takes part in gathering the shards first, after checking that
-        the replicated parameters rank 0 writes are every rank's."""
+        the replicated parameters rank 0 writes are every rank's.  With
+        ``wait=False`` rank 0's disk writes run on a background thread once
+        its host copy is taken (train/checkpoint.py)."""
         if getattr(st.model, "tp_layout", {}):
             digests = replica_digests(st.model, mesh)
             if len(set(digests)) != 1:
@@ -465,61 +536,123 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                 f"{st.step} (digest {digests[0]:#x})")
         with whole_model(st.model, mesh, st.opt_state) as whole_opt:
             if is_main:
-                ckpt.save(output_dir, TrainState(st.model, whole_opt, st.step), cfg)
+                ckpt.save(output_dir, TrainState(st.model, whole_opt, st.step), cfg,
+                          wait=wait)
 
-    def save() -> None:
+    def save(wait: bool = True) -> None:
         _barrier(mesh)
-        write(state)
+        write(state, wait)
         _barrier(mesh)
+
+    # TensorBoard histograms on rank 0 (every rank gathers a sharded model).
+    histograms = is_main and logger.writer is not None
+    if mesh.model > 1 and not tc.lattice_shard_t:
+        histograms = _from_main(mesh, histograms)
+
+    def log_histograms() -> None:
+        with whole_model(model, mesh):
+            if is_main:
+                logger.log_histograms(state.step, model)
 
     rows = mesh.rows(tc.global_batch_size // mesh.data)
 
     def epoch_batches(epoch: int):
         """(this rank's rows of a global batch on the device, the global
         batch's audio seconds) of one epoch: rows gathered from the cache
-        in its order, or streamed batches."""
+        in its order, or this rank's shard streamed."""
         if cache is not None:
             for gi, idx in cache.epoch_batches(tc.global_batch_size, seed=epoch):
                 yield (gather_rows(cache.groups[gi], idx[rows]),
                        cache.batch_audio_seconds(gi, idx))
             return
-        it = BatchIterator(train_ds, tokenizer, buckets,
-                           batch_size=tc.global_batch_size,
-                           augmentor=augmentor, shuffle=True, seed=epoch,
-                           num_workers=cfg.data.num_workers,
-                           worker_mode=cfg.data.worker_mode,
-                           wire_dtype=cfg.data.wire_dtype)
-        for batch in PrefetchIterator(it, depth=4):
-            yield (batch_to_device({k: v[rows] for k, v in batch.items()}, dev),
-                   float(batch["audio_lens"].sum()) / fspec.sample_rate)
+        it = stream_batches(cfg, train_ds, tokenizer, buckets, augmentor, epoch, mesh)
+        batches = iter(PrefetchIterator(it, depth=4))
+        n = 0
+        try:
+            while True:
+                batch = next(batches, None)
+                secs = 0.0 if batch is None else (
+                    float(batch["audio_lens"].sum()) / fspec.sample_rate)
+                if mesh.world > 1:
+                    # Shards bucket apart, so their batch counts differ: the
+                    # ranks agree each step that all still have a batch, and
+                    # sum the global batch's audio seconds, in one all-reduce.
+                    both = all_reduce_sum(torch.tensor(
+                        [float(batch is not None), secs], dtype=torch.float64, device=dev))
+                    if int(both[0]) < mesh.world:
+                        return
+                    secs = float(both[1]) / mesh.model
+                elif batch is None:
+                    return
+                n += 1
+                yield batch_to_device(batch, dev), secs
+        finally:
+            if mesh.world > 1:
+                print(f"rank {mesh.rank} (data shard {mesh.data_rank} of {mesh.data}): "
+                      f"epoch {epoch}: {it.rows_loaded} rows loaded and host-augmented, "
+                      f"{n} batches of {it.batch_size} rows", flush=True)
+
+    def region(name: str):
+        """A labelled span in the profiler's trace (nothing when not tracing)."""
+        return (torch.profiler.record_function(name) if prof is not None
+                else contextlib.nullcontext())
+
+    def stop_profile() -> None:
+        nonlocal prof
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        path = stop_trace(prof, output_dir / "trace", f"rank{mesh.rank}")
+        prof = None
+        say(f"profiler trace of steps {start_step + 3}-{state.step} written to {path}")
 
     model.train()
+    prof = None
+    start_step = state.step
     done = state.step >= total_steps
     for epoch in range(max(tc.num_epochs, 1)):
         if done:
             break
-        for batch, seconds in epoch_batches(epoch):
-            fn = warm_fn if warm_fn is not None and state.step < warmup_until else step_fn
-            before = launch_counts()
-            state, metrics = fn(state, batch, step_generator(dev, tc.seed, state.step))
-            launched = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
-            audio_secs += seconds
-            pending.append((state.step, metrics, launched))
-            if state.step % tc.log_steps == 0:
-                flush(epoch)
-            if state.step % tc.eval_steps == 0 or state.step == total_steps:
-                flush(epoch)
-                run_eval()
-            if state.step % tc.checkpoint_steps == 0:
-                save()
-            if state.step >= total_steps:
-                done = True
-                break
+        batches = epoch_batches(epoch)
+        while not done:
+            if profile and prof is None and state.step - start_step == 2:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                prof = start_trace(dev)  # steps 3-6 of this run
+            with region(f"step {state.step + 1}"):
+                with region("data"):
+                    item = next(batches, None)
+                if item is None:
+                    break
+                batch, seconds = item
+                fn = warm_fn if warm_fn is not None and state.step < warmup_until else step_fn
+                before = launch_counts()
+                with region("train_step"):
+                    state, metrics = fn(state, batch,
+                                        step_generator(dev, tc.seed, state.step))
+                launched = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
+                with region("bookkeeping"):
+                    audio_secs += seconds
+                    pending.append((state.step, metrics, launched))
+                    if state.step % tc.log_steps == 0:
+                        flush(epoch)
+                    if state.step % tc.eval_steps == 0 or state.step == total_steps:
+                        flush(epoch)
+                        run_eval()
+                    if state.step % tc.hist_steps == 0 and histograms:
+                        log_histograms()
+                    if state.step % tc.checkpoint_steps == 0:
+                        save(wait=False)
+                    done = state.step >= total_steps
+            if prof is not None and state.step - start_step == 6:
+                stop_profile()
+        batches.close()
 
+    if prof is not None:
+        stop_profile()
     flush(max(tc.num_epochs, 1) - 1)
     if np.isnan(last_wer):
         run_eval()
-    save()
+    save()  # waits, after any periodic save still being written
     if logger is not None:
         logger.close()
     return last_wer

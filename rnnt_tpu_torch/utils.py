@@ -1,9 +1,19 @@
-"""Small helpers shared by the port's entry points."""
+"""Small helpers shared by the port's entry points.
+
+``save_tensor_json`` / ``load_tensor_json`` are the port's copy of the
+JAX package's base64 tensor interchange format (``rnnt_tpu/utils.py``):
+``{"dtype", "shape", "data"}`` with the raw little-endian bytes in base64,
+float32 and int32 only.  The JAX package's ``enable_compilation_cache``
+configures XLA's compilation cache and has no counterpart here.
+"""
 
 from __future__ import annotations
 
+import base64
+import json
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -44,3 +54,24 @@ def batch_draw(generator, batch: int, draw):
     out = draw(generator.generator, generator.global_batch)
     rows = slice(generator.start, generator.start + batch)
     return {k: v[rows] for k, v in out.items()} if isinstance(out, dict) else out[rows]
+
+
+def save_tensor_json(array) -> str:
+    """A float32 or int32 array (numpy, or a CPU tensor) as the tensor
+    JSON string."""
+    arr = np.asarray(array)
+    if arr.dtype not in (np.float32, np.int32):
+        raise ValueError(f"unsupported dtype {arr.dtype} (float32/int32 only)")
+    return json.dumps({
+        "dtype": str(arr.dtype),
+        "shape": list(arr.shape),
+        "data": base64.b64encode(arr.tobytes()).decode("utf-8"),
+    })
+
+
+def load_tensor_json(payload: str) -> np.ndarray:
+    """The array of a tensor JSON string (a writable copy)."""
+    obj = json.loads(payload)
+    data = base64.b64decode(obj["data"])
+    return np.frombuffer(data, dtype=np.dtype(obj["dtype"])).reshape(
+        obj["shape"]).copy()

@@ -1,6 +1,7 @@
 """Guards of the port: rnnt_tpu_torch and chip_smoke.py import neither jax
-nor rnnt_tpu, and every entry point refuses to run without CUDA unless it
-is asked for the CPU."""
+nor rnnt_tpu and build no path into rnnt_tpu/, the port's YAML configs are
+byte-equal copies of the JAX package's, and every entry point refuses to
+run without CUDA unless it is asked for the CPU."""
 
 import ast
 import json
@@ -9,14 +10,17 @@ from pathlib import Path
 import pytest
 import torch
 
+from rnnt_tpu_torch.cli import calc_global_features as cli_cgf
 from rnnt_tpu_torch.cli import eval as cli_eval
 from rnnt_tpu_torch.cli import export as cli_export
 from rnnt_tpu_torch.cli import import_torch as cli_import_torch
 from rnnt_tpu_torch.cli import infer as cli_infer
 from rnnt_tpu_torch.cli import run_bundle as cli_run_bundle
 from rnnt_tpu_torch.cli import serve as cli_serve
+from rnnt_tpu_torch.cli import sweep as cli_sweep
 from rnnt_tpu_torch.cli import train as cli_train
-from rnnt_tpu_torch.config.config import apply_overrides, load_config, resolve_config
+from rnnt_tpu_torch.config.config import (
+    CONFIG_DIR, apply_overrides, load_config, resolve_config)
 from rnnt_tpu_torch.train.loop import evaluate, train
 from rnnt_tpu_torch.utils import resolve_device
 
@@ -39,6 +43,55 @@ def test_no_jax_or_rnnt_tpu_imports(path):
     for mod in _imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "rnnt_tpu", "optax", "orbax"), (path, mod)
+
+
+def _into_jax_package(node) -> bool:
+    """A string constant naming rnnt_tpu or a path under it."""
+    return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and node.value.split("/")[0] == "rnnt_tpu")
+
+
+def _jax_paths(path):
+    """Lines where a path into rnnt_tpu/ is built: such a constant as an
+    operand of ``/`` or an argument of ``os.path.join``, ``Path``,
+    ``PurePath`` or ``joinpath``."""
+    lines = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            operands = [node.left, node.right]
+        elif isinstance(node, ast.Call):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+            operands = node.args if name in ("join", "Path", "PurePath", "joinpath") else []
+        else:
+            continue
+        lines += [node.lineno for x in operands if _into_jax_package(x)]
+    return sorted(lines)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_rnnt_tpu(path):
+    assert not _jax_paths(path), (path, _jax_paths(path))
+
+
+def test_path_guard_sees_a_path_into_rnnt_tpu(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text('from pathlib import Path\nimport os\n'
+                   'A = Path(__file__).parents[2] / "rnnt_tpu" / "config"\n'
+                   'B = os.path.join(ROOT, "rnnt_tpu/config/configs")\n'
+                   'C = Path("rnnt_tpu")\nD = "rnnt_tpu/ops/x.py:65"\n')
+    assert _jax_paths(bad) == [3, 4, 5]
+    assert CONFIG_DIR == REPO / "rnnt_tpu_torch" / "config" / "configs"
+
+
+JAX_CONFIGS = sorted((REPO / "rnnt_tpu" / "config" / "configs").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("jax_yaml", JAX_CONFIGS, ids=lambda p: p.stem)
+def test_config_copies_equal_jax(jax_yaml):
+    assert len(JAX_CONFIGS) == 9
+    assert (CONFIG_DIR / jax_yaml.name).read_bytes() == jax_yaml.read_bytes()
+    assert resolve_config(jax_yaml.stem) == CONFIG_DIR / jax_yaml.name
 
 
 @pytest.fixture
@@ -95,6 +148,24 @@ def test_deployment_entry_points_refuse_missing_cuda(no_cuda, tmp_path, entry):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             calls[entry](*dev)
     assert not (tmp_path / "out").exists() and not (tmp_path / "export").exists()
+
+
+@pytest.mark.parametrize("entry", ["calc_global_features", "sweep"])
+def test_tool_entry_points_refuse_missing_cuda(no_cuda, tmp_path, entry):
+    """The training tools, by default and with --device cuda, before they
+    read a config or write a file (render_augments uses no device)."""
+    out = tmp_path / "out"
+    calls = {
+        "calc_global_features": lambda *dev: cli_cgf.main(
+            ["--config", "tiny_conv", "--out", str(out), *dev]),
+        "sweep": lambda *dev: cli_sweep.main(
+            ["--config", "tiny_conv", "--trials", "1", "--study", str(out),
+             "--output-base", str(tmp_path / "exp"), *dev]),
+    }
+    for dev in ((), ("--device", "cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            calls[entry](*dev)
+    assert not any(tmp_path.iterdir())
 
 
 def test_evaluate_refuses_missing_cuda(no_cuda, tmp_path):

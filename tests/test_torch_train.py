@@ -355,11 +355,11 @@ def test_cli_train_writes_checkpoint_cli_eval_reads(vocab, tmp_path, capsys):
 
 @pytest.mark.parametrize("override,error,match", [
     ("mesh.data=2", ValueError, "mesh data=2 x model=1 needs 2 ranks"),
-    ("data.dataset=librispeech", NotImplementedError, "dataset"),
+    ("data.dataset=timit", ValueError, "unknown dataset timit"),
 ])
 def test_train_refuses_what_is_not_ported(vocab, tmp_path, override, error, match):
     """A mesh larger than the process group (one process here) and an
-    unported dataset raise before a run is written."""
+    unknown dataset raise before a run is written."""
     cfg = tconfig.apply_overrides(tconfig.load_config(tconfig.resolve_config(
         "tiny_conv")), _overrides(vocab, "chunked") + [override])
     with pytest.raises(error, match=match):

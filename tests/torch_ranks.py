@@ -208,3 +208,29 @@ def mesh_train_rank(data: int, model: int, cfg, runs: dict, batches: list):
             held={n: [tuple(params[n].shape), tuple(state.opt_state.mu[n].shape),
                       tuple(state.opt_state.nu[n].shape)] for n in layout})
     return dict(place=(mesh.data_rank, mesh.model_rank), runs=out)
+
+
+class RecordingAugmentor:
+    """The host recipe, recording each row it is given by its first
+    samples' bytes (a row's key before augmentation)."""
+
+    def __init__(self, inner):
+        self.inner, self.keys = inner, []
+
+    def __call__(self, audio, sample_rate, rng=None):
+        self.keys.append(audio[:16].tobytes())
+        return self.inner(audio, sample_rate, rng=rng)
+
+
+def streamed_train_rank(overrides: list, output_base: str):
+    """``train.loop.train`` of tiny_conv on the streamed path (the host
+    recipe through a RecordingAugmentor) over this rank's data shard;
+    returns the rows it augmented and the final WER."""
+    from rnnt_tpu_torch.data.augment import default_augmentor
+    from rnnt_tpu_torch.train import loop
+
+    cfg, _, _ = _tiny_setup(overrides)
+    rec = RecordingAugmentor(default_augmentor())
+    wer = loop.train(cfg, output_base=output_base, device="cpu",
+                     make_augmentor=lambda c: rec)
+    return dict(rank=dist.get_rank(), keys=rec.keys, wer=wer)
