@@ -161,7 +161,11 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    it prints is read back), K1-K4 once per step on each rank and K5-K7
    never, every rank's replicated parameters bit-equal after the steps
    (cli.train's line, read back); the same with the pruned loss (1 warmup
-   step and 1 banded step, K1 and K2 on V slices in both); batch norm over
+   step and 1 banded step, K1 and K2 on V slices in both); the same with
+   the chunked loss (slice 15: the chunked joint on V slices in plain
+   PyTorch, merged over the model ranks, K3 and K4 once per step on each
+   rank on the merged lattice, K1, K2 and K5-K7 never, rank 0's eval
+   through K3 without K1, both read-back lines); batch norm over
    the data group (slice 12): full-width
    ``base_convjs_fullcausal`` on ``mesh.data=2``, 1 step, K1-K4 once a
    rank (without host augmentation since slice 14, so that both runs
@@ -3073,13 +3077,17 @@ TP_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_seconds=10",
 # the simple joint on V slices), then 1 banded step (K1 and K2 on V slices of
 # the band's patches).
 TP_PRUNED = ["training.loss_impl=pruned", "training.pruned_warmup_steps=1"]
+# The chunked objective on the same mesh: the chunked joint on V slices (plain
+# PyTorch, as the reference leaves it to XLA), K3 and K4 on the merged lattice.
+TP_CHUNKED = ["training.loss_impl=chunked"]
 REPLICA_LINE = re.compile(r"replicated parameters bit-equal on the (\d+) ranks at step (\d+)")
 TP_LINE = re.compile(r"tensor parallel over (\d+) model ranks: (\d+) tensors sharded "
                      r"\(([\d,]+) parameters on each rank\); each rank holds ([\d,]+)")
 
 
 def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
-                     cases=("tshard", "data_parallel", "tp", "tp_pruned", "bn")) -> dict:
+                     cases=("tshard", "data_parallel", "tp", "tp_pruned", "tp_chunked",
+                            "bn")) -> dict:
     """The multi-rank layer through ``torch.distributed.run`` and cli.train,
     each run against the same config on 1 rank in this process.  On one
     card 2 ranks share it over gloo (``--device cuda:0 --dist-backend
@@ -3108,6 +3116,10 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
     * ``tp_pruned``: the same with the pruned loss (TP_PRUNED), 1 warmup
       and 1 banded step: K1 and K2 once per step on each rank, K3 and K4
       in each;
+    * ``tp_chunked``: the same with the chunked loss (TP_CHUNKED), 2 steps:
+      K3 and K4 once per step on each rank, K1, K2 and K5-K7 never; rank
+      0's eval (the chunked loss on the gathered model) through K3 without
+      K1; both lines read back as for ``tp``;
     * ``bn``: full-width ``base_convjs_fullcausal`` (batch norm) on
       ``mesh.data`` = the ranks, 1 step: statistics over the data group.
 
@@ -3143,6 +3155,9 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
         "tp_pruned": ((tp[0], tp[1] + TP_PRUNED), 2, [f"mesh.data={n // 2}", "mesh.model=2"],
                       ["mesh.data=1", "mesh.model=1"], DP_RTOL,
                       dict(kernels_once, alpha_fwd=None, beta_bwd=None)),
+        "tp_chunked": ((tp[0], tp[1] + TP_CHUNKED), 2, [f"mesh.data={n // 2}", "mesh.model=2"],
+                       ["mesh.data=1", "mesh.model=1"], DP_RTOL,
+                       dict(kernels_once, joint_fwd=0, joint_bwd=0)),
         "bn": (bn, 1, [f"mesh.data={n}", "mesh.model=1"], ["mesh.data=1", "mesh.model=1"],
                DP_RTOL, kernels_once),
     }
@@ -3151,7 +3166,7 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
     out = {}
     for key in cases:
         (config, overrides), steps, many, one, rtol, expect = table[key]
-        if {"tp": n // 2, "tp_pruned": n // 2, "bn": n}.get(key, 1) > 1:
+        if {"tp": n // 2, "tp_pruned": n // 2, "tp_chunked": n // 2, "bn": n}.get(key, 1) > 1:
             # These configs stream (the host recipe), and streamed, each data
             # rank loads its own shard (slice 14), not its rows of the 1-rank
             # run's global batches: without host augmentation the corpus is
@@ -3204,6 +3219,9 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
               if k.startswith("eval_launches/")}
         if on_card and key == "tshard" and not (ev.get("joint_fwd") and ev.get("alpha_fwd")):
             raise AssertionError(f"tshard: rank 0's eval launched {ev}, expected K1 and K3")
+        if on_card and key == "tp_chunked" and not (ev.get("alpha_fwd") and not ev.get("joint_fwd")):
+            raise AssertionError(f"tp_chunked: rank 0's eval launched {ev}, expected K3 "
+                                 "and no K1")
         log(f"{key}: {n} ranks in {secs:.1f} s, 1 rank in {secs1:.1f} s (start-up, cache, "
             f"{steps} step(s), rank 0's eval); metrics.jsonl steps "
             f"{[s['step'] for s in steps2]}, rank 0's eval WER {evals[0]['wer/eval']:.4f} "
@@ -3218,14 +3236,15 @@ def multi_rank_phase(workdir: Path, device, train: dict, cards: int = 1,
                                      f"bit-equal on the {n} ranks at step {steps} in "
                                      f"{log_path}")
             log(f"{key}: replicated parameters bit-equal on the {n} ranks after {steps} steps")
-        if key == "tp":
+        if key in ("tp", "tp_chunked"):
             m = TP_LINE.search(said)
             if m is None or int(m.group(1)) != 2:
-                raise AssertionError(f"tp: no line saying what each rank holds in {log_path}")
+                raise AssertionError(f"{key}: no line saying what each rank holds in "
+                                     f"{log_path}")
             out[key]["sharded"] = dict(tensors=int(m.group(2)),
                                        sharded_per_rank=int(m.group(3).replace(",", "")),
                                        held_per_rank=int(m.group(4).replace(",", "")))
-            log(f"tp: each rank holds {out[key]['sharded']['held_per_rank']:,} parameters, "
+            log(f"{key}: each rank holds {out[key]['sharded']['held_per_rank']:,} parameters, "
                 f"{out[key]['sharded']['sharded_per_rank']:,} of them its shards of "
                 f"{m.group(2)} tensors")
     return out
@@ -3992,7 +4011,7 @@ def main() -> None:
                          "rank, NCCL's transport costs)")
     ap.add_argument("--cases", default=None,
                     help="with --cards: only these multi-rank cases, comma-separated "
-                         "(tshard, data_parallel, tp, tp_pruned, bn)")
+                         "(tshard, data_parallel, tp, tp_pruned, tp_chunked, bn)")
     ap.add_argument("--parent-lattice", metavar="DIR", type=Path, default=None,
                     help="also build alpha_fwd.cu, beta_bwd.cu, alpha_chain.cu and "
                          "beta_chain.cu of another tree from DIR (with its headers) and "
@@ -4185,8 +4204,8 @@ def main() -> None:
                if "other_tree" in ev else {})))
     multi = {key: dict(gaps=r["gaps"], seconds=r["seconds"], eval_launches=r["eval_launches"],
                        seconds_one_rank=r["seconds_one_rank"],
-                       steps=[{k: s[k] for k in ("step", "loss", "grad_norm", "seconds")}
-                              for s in r["steps2"]],
+                       steps=[{k: s[k] for k in ("step", "loss", "grad_norm", "seconds",
+                                                 "by_rank")} for s in r["steps2"]],
                        steps_one_rank=[{k: s[k] for k in ("step", "loss", "grad_norm",
                                                           "seconds")} for s in r["steps1"]],
                        **({"sharded": r["sharded"]} if "sharded" in r else {}))

@@ -316,15 +316,10 @@ def check_mesh(cfg: Config, data: int, model: int) -> None:
     until it divides, ``rnnt_tpu/train/loop.py:158-164``; the port says
     so instead of training on another layout).  A ``model`` axis without
     ``lattice_shard_t`` is tensor-parallel (parallel/mesh.py), which every
-    loss but ``chunked`` runs (its joint has no vocabulary-sharded
-    version)."""
+    loss runs, each on its joint's slice of V."""
     if cfg.training.lattice_shard_t and model == 1:
         raise ValueError("training.lattice_shard_t shards the lattice's T axis "
                          "over mesh.model ranks; mesh.model is 1")
-    if model > 1 and not cfg.training.lattice_shard_t \
-            and cfg.training.loss_impl == "chunked":
-        raise ValueError("training.loss_impl=chunked has no tensor-parallel joint; "
-                         "use auto, pallas or pruned with mesh.model > 1")
     if cfg.training.global_batch_size % data:
         raise ValueError(f"training.global_batch_size="
                          f"{cfg.training.global_batch_size} does not divide "

@@ -13,7 +13,10 @@ and the log-sum-exp here is guarded so two log-zeros stay exactly NEG.
 * ``joint_lattice_log_probs`` / ``transducer_loss`` — the chunked path:
   the joint is evaluated T-chunk by T-chunk, each chunk under
   ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` remat), so
-  only (B, T, U+1) log-probs persist, then ``lattice_nll`` runs the DP.
+  only (B, T, U+1) log-probs persist, then ``lattice_nll`` runs the DP.  A
+  V-sharded joint runs the chunks on its slice of V and merges the lattice
+  over the model group (parallel/partition.py), as XLA splits the
+  reference's chunk body.
 * ``transducer_loss_from_logits`` — the oracle over full logits.
 * ``clamp_grads`` — identity forward, the cotangent clamped backward.
 * ``lattice_nll`` — the differentiable lattice NLL (ops/lattice_pallas.py):
@@ -164,14 +167,20 @@ def transducer_loss_from_logits(logits, targets, t_lens, u_lens, blank: int,
                          reduction)
 
 
-def _joint_chunk_log_probs(w, b, enc_chunk, text, tgt, u_mask, blank: int,
+def chunk_logits(enc_chunk, w, b, text, grad_clamp: float) -> torch.Tensor:
+    """(B, Tc, U+1, V) f32 logits of a chunk of frames: h = tanh(enc +
+    pred) in the inputs' dtype, h W with W in that dtype, summed in f32;
+    with grad_clamp > 0 their cotangent is clamped in backward."""
+    h = torch.tanh(enc_chunk[:, :, None, :] + text[:, None, :, :])
+    logits = torch.matmul(h.float(), w.to(h.dtype).float()) + b.float()
+    return clamp_grads(logits, grad_clamp) if grad_clamp > 0 else logits
+
+
+def _joint_chunk_log_probs(enc_chunk, w, b, text, tgt, u_mask, blank: int,
                            grad_clamp: float):
     """Joint + log-softmax + blank/label gather for a chunk of frames:
     (B, Tc, U+1) f32 blank and label log-probs."""
-    h = torch.tanh(enc_chunk[:, :, None, :] + text[:, None, :, :])
-    logits = torch.matmul(h.float(), w.to(h.dtype).float()) + b.float()
-    if grad_clamp > 0:
-        logits = clamp_grads(logits, grad_clamp)
+    logits = chunk_logits(enc_chunk, w, b, text, grad_clamp)
     denom = torch.logsumexp(logits, dim=-1)
     B, Tc, U1, _ = logits.shape
     label = torch.gather(logits, 3,
@@ -181,39 +190,50 @@ def _joint_chunk_log_probs(w, b, enc_chunk, text, tgt, u_mask, blank: int,
                         torch.full_like(denom, NEG)))
 
 
+def run_chunks(body, audio: torch.Tensor, chunk_size: int, *args) -> tuple:
+    """``body(chunk, *args)`` on each ``chunk_size`` frames of audio (B, T,
+    H), its (B, Tc, ...) outputs concatenated along T.  When autograd
+    records, each chunk runs under ``torch.utils.checkpoint`` so what it
+    makes inside is recomputed in backward, not kept."""
+    remat = torch.is_grad_enabled()
+    outs = []
+    for t0 in range(0, audio.shape[1], chunk_size):
+        chunk = audio[:, t0:t0 + chunk_size]
+        outs.append(torch.utils.checkpoint.checkpoint(body, chunk, *args, use_reentrant=False)
+                    if remat else body(chunk, *args))
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
 def joint_lattice_log_probs(joint, audio: torch.Tensor, text: torch.Tensor,
                             targets: torch.Tensor, u_lens: torch.Tensor,
                             blank: int, chunk_size: int = 32,
                             grad_clamp: float = -1.0, t_rows: slice | None = None):
     """(lp_blank, lp_label), both (B, T, U+1) f32, from the joint evaluated
-    ``chunk_size`` frames at a time.  audio (B, T, H) and text (B, U+1, H)
-    are the encoder and predictor outputs; targets (B, U) label ids;
-    ``t_rows`` keeps only those frames of the projected audio (a T-sharded
-    rank's block).  When autograd records, each chunk runs under
-    ``torch.utils.checkpoint`` so its (B, chunk, U+1, V) logits are
-    recomputed in backward, not kept."""
+    ``chunk_size`` frames at a time (``run_chunks``: each chunk's (B,
+    chunk, U+1, V) logits are recomputed in backward, not kept).  audio
+    (B, T, H) and text (B, U+1, H) are the encoder and predictor outputs;
+    targets (B, U) label ids; ``t_rows`` keeps only those frames of the
+    projected audio (a T-sharded rank's block).  A V-sharded joint
+    (``joint.tp_mesh`` set) runs the chunks on its slice of V and merges
+    the lattice over the model group
+    (``parallel/partition.chunked_joint_log_probs_tp``)."""
     from rnnt_tpu_torch.models.joint import project_sides
 
     audio, text = project_sides(joint, audio, text)
+    if joint.tp_mesh is not None:
+        from rnnt_tpu_torch.parallel.partition import chunked_joint_log_probs_tp
+
+        return chunked_joint_log_probs_tp(joint.out.w, joint.out.b, audio, text, targets,
+                                          u_lens, blank, chunk_size, grad_clamp,
+                                          joint.tp_mesh)
     if t_rows is not None:
         audio = audio[:, t_rows]
-    B, T, _ = audio.shape
+    B = audio.shape[0]
     U1 = text.shape[1]
     tgt = torch.cat([targets, targets.new_zeros((B, 1))], dim=1).long()
     u_mask = torch.arange(U1, device=audio.device)[None, :] < u_lens[:, None]
-    remat = torch.is_grad_enabled()
-    lpb, lpl = [], []
-    for t0 in range(0, T, chunk_size):
-        args = (joint.out.w, joint.out.b, audio[:, t0:t0 + chunk_size], text,
-                tgt, u_mask, blank, grad_clamp)
-        if remat:
-            b_c, l_c = torch.utils.checkpoint.checkpoint(
-                _joint_chunk_log_probs, *args, use_reentrant=False)
-        else:
-            b_c, l_c = _joint_chunk_log_probs(*args)
-        lpb.append(b_c)
-        lpl.append(l_c)
-    return torch.cat(lpb, dim=1), torch.cat(lpl, dim=1)
+    return run_chunks(_joint_chunk_log_probs, audio, chunk_size, joint.out.w, joint.out.b,
+                      text, tgt, u_mask, blank, grad_clamp)
 
 
 def reduce_losses(losses: torch.Tensor, reduction: str) -> torch.Tensor:

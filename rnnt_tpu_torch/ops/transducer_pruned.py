@@ -27,9 +27,9 @@ Kuang et al., Interspeech 2022, as the k2/icefall recipe trains it):
 
 A V-sharded joint (``tp_mesh`` set, ``parallel/mesh.shard_params``) takes
 the simple joint of ``parallel/partition.py`` and the fused kernels on its
-slice (``fused_joint_outputs(mesh=)``), in the banded loss and in both
-parts of the warmup loss (whose exact part then runs the fused path on the
-CPU too: the chunked joint has no sharded version).
+slice (``fused_joint_outputs(mesh=)``) in the banded loss; in the warmup
+loss, the simple joint and the exact part on its slice, fused on CUDA and
+chunked on the CPU, as on one rank.
 """
 
 from __future__ import annotations
@@ -194,7 +194,7 @@ def pruned_warmup_loss(joint, audio, text, targets, t_lens, u_lens,
     lpb_s, lpl_s = _simple(joint, audio, text, targets, u_lens, blank)
     losses_simple = lattice_nll(lpb_s, lpl_s, t_lens, u_lens)
     args = (joint, audio, text, targets, t_lens, u_lens, blank)
-    if joint.tp_mesh is not None or resolve_loss_impl("auto", audio.device) == "pallas":
+    if resolve_loss_impl("auto", audio.device) == "pallas":
         exact = transducer_loss_pallas(*args, grad_clamp=grad_clamp,
                                        reduction="none")
     else:

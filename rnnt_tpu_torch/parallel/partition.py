@@ -1,11 +1,14 @@
-"""The vocabulary-sharded joint: K1 and K2 on a rank's slice of V.
+"""The vocabulary-sharded joints: K1 and K2, the chunked joint and the
+simple joint on a rank's slice of V.
 
 Port of ``rnnt_tpu/parallel/partition.py:107-211`` (the fused joint's batch
-x vocab partitioning) and of the V-sharded reading of
-``rnnt_tpu/ops/transducer_pruned.py:55-104`` (the simple joint).  JAX
-declares these as GSPMD partitioning rules (``custom_partitioning``) and
-XLA splits one jitted program; here every model rank runs its slice and
-names the collectives over the model group itself.  Each rank holds
+x vocab partitioning), of the V-sharded reading of
+``rnnt_tpu/ops/transducer_pruned.py:55-104`` (the simple joint) and of
+``rnnt_tpu/ops/transducer.py:210-289`` (the chunked joint, whose ``h W``
+and logsumexp XLA splits over V).  JAX declares the first two as GSPMD
+partitioning rules (``custom_partitioning``) and lets XLA split the third;
+all three run in one jitted program.  Here every model rank runs its slice
+and names the collectives over the model group itself.  Each rank holds
 ``joint.out`` and the simple heads as (H, V / m) and (V / m,) slices
 starting at global id ``v0 = model_rank * V / m``
 (``parallel/mesh.shard_params``), and the combines run on cheap (B, T, U1)
@@ -18,6 +21,15 @@ scalars:
   logits summed (the slice that owns neither gives 0).  Backward: K2 on the
   slice with the merged lse, so its softmax is the global one; denc and
   dpred summed over the model group; dW and db stay the slice's.
+* ``chunked_joint_log_probs_tp``: the chunked joint's body on the slice,
+  chunk by chunk under ``torch.utils.checkpoint`` (the slice's lse, and
+  its blank and label logits where it owns them), merged once on the
+  whole (B, T, U1) tensors by the same ``logsumexp_merge``, outside the
+  checkpoints: a recompute in backward issues no collective, and a loss
+  makes two in forward whatever its chunks.  Autograd carries the
+  backward: the merge hands each slice's logits the global softmax, and
+  ``copy_to_model`` on the joint's inputs sums denc and dpred over the
+  model group;
 * ``simple_joint_log_probs_tp``: ``am`` and ``lm`` on the slice, the
   normalizer's per-row maxima all-reduced by max before the exponentials,
   ``z``'s partial sums and the label and blank logits (taken where the
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from rnnt_tpu_torch.ops.transducer import NEG, chunk_logits, run_chunks
 from rnnt_tpu_torch.ops.transducer_pallas import (
     _slice_ids,
     check_blank,
@@ -56,9 +69,12 @@ def slice_start(w: torch.Tensor, mesh: Mesh) -> int:
 def logsumexp_merge(lse: torch.Tensor, parts: list, mesh: Mesh):
     """(lse over every slice, each of ``parts`` summed over the slices):
     ``m + log(sum exp(lse - m))`` with m the slices' max, the sums in one
-    all-reduce."""
+    all-reduce.  Differentiable: m is detached and the sums are
+    ``reduce_from_model`` (identity backward), so this rank's lse receives
+    ``exp(lse - merged)`` times the merged lse's gradient, and each part the
+    sum's."""
     m = all_reduce_max(lse, mesh)
-    both = all_reduce_sum(torch.stack([torch.exp(lse - m), *parts]), mesh.model_group)
+    both = reduce_from_model(torch.stack([torch.exp(lse - m), *parts]), mesh)
     return m + torch.log(both[0]), list(both[1:])
 
 
@@ -97,6 +113,39 @@ def fused_joint_outputs_tp(enc, pred, w, b, labels, blank: int, grad_clamp: floa
     whole vocabulary, from this rank's slice w (H, V/m) and b (V/m,);
     enc and pred whole and alike on every model rank."""
     return FusedJointOutputsTP.apply(enc, pred, w, b, labels, blank, grad_clamp, mesh)
+
+
+def _chunk_outputs_tp(enc_chunk, w, b, text, local, own, blank_col, grad_clamp: float):
+    """``ops.transducer._joint_chunk_log_probs`` on a slice of V: (the
+    slice's lse, the blank logit where the slice holds the blank, the label
+    logit where it owns the id), each (B, Tc, U1) float32, 0 where the slice
+    holds no such column."""
+    logits = chunk_logits(enc_chunk, w, b, text, grad_clamp)
+    B, Tc, U1, _ = logits.shape
+    label = torch.gather(logits, 3, local[:, None, :, None].expand(B, Tc, U1, 1))[..., 0]
+    zero = logits.new_zeros(())
+    return (torch.logsumexp(logits, dim=-1),
+            logits[..., blank_col] if blank_col is not None else zero.expand(B, Tc, U1),
+            torch.where(own[:, None, :], label, zero))
+
+
+def chunked_joint_log_probs_tp(w, b, audio, text, targets, u_lens, blank: int,
+                               chunk_size: int, grad_clamp: float, mesh: Mesh):
+    """(lp_blank, lp_label), both (B, T, U1) float32 over the whole
+    vocabulary, from this rank's slice w (H, V/m) and b (V/m,) evaluated
+    ``chunk_size`` frames at a time; audio (B, T, H) and text (B, U1, H)
+    side-projected, whole and alike on every model rank; targets (B, U)."""
+    check_blank(blank, w.shape[1] * mesh.model)
+    audio, text = copy_to_model(audio, mesh), copy_to_model(text, mesh)
+    B, U1 = text.shape[:2]
+    tgt = torch.cat([targets, targets.new_zeros((B, 1))], dim=1)
+    local, own, blank_col = _slice_ids(tgt, blank, slice_start(w, mesh), w.shape[1])
+    lse, blank_logit, label_logit = run_chunks(_chunk_outputs_tp, audio, chunk_size, w, b,
+                                               text, local, own, blank_col, grad_clamp)
+    lse, (blank_logit, label_logit) = logsumexp_merge(lse, [blank_logit, label_logit], mesh)
+    u_mask = torch.arange(U1, device=audio.device)[None, :] < u_lens[:, None]
+    return blank_logit - lse, torch.where(u_mask[:, None, :], label_logit - lse,
+                                          torch.full_like(lse, NEG))
 
 
 def simple_joint_log_probs_tp(simple, audio, text, targets, u_lens, blank: int,

@@ -48,7 +48,9 @@ barriers around them; a resume restores on every rank.
 On a tensor-parallel mesh (``mesh.model`` > 1 without ``lattice_shard_t``)
 every rank builds (or restores) the whole model and cuts it to its shards
 (``parallel/mesh.shard_params``; the optimizer's moments follow), and says
-how many parameters it holds.  A save gathers every sharded parameter and
+how many parameters it holds; every ``loss_impl`` trains there, the
+chunked loss through its vocabulary-sharded joint
+(``parallel/partition.py``).  A save gathers every sharded parameter and
 moment over the model group and rank 0 writes the whole model in the
 unsharded layout, so a 1-rank ``cli.eval`` or resume reads it as it is,
 once every rank's replicated parameters were found bit-equal; a resume

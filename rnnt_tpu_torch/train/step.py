@@ -13,7 +13,8 @@ and batch-norm batch statistics); and the loss dispatches on
 * ``pallas`` — K1 + K3 forward, K2 + K4 backward (ops/transducer_pallas.py);
 * ``chunked`` — the chunked joint under checkpoint + the lattice DP
   (ops/transducer.py);
-* ``auto`` — the first on CUDA, the second on the CPU;
+* ``auto`` — the first on CUDA, the second on the CPU, on one rank and on
+  a tensor-parallel mesh alike;
 * ``pruned`` / ``pruned_warmup`` — ops/transducer_pruned.py.
 
 ``make_train_step`` returns ``step(state, batch, generator) -> (state,
@@ -130,8 +131,9 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
     read only under ``spec.lattice_shard_t``: the loss then takes the
     chunked joint and, when the mesh's ``model`` axis is larger than 1, the
     T-sharded lattice (``rnnt_tpu/train/step.py:70-77,129-142``).  A
-    V-sharded joint (``model.joint.tp_mesh``) takes the fused path for
-    ``auto`` on any device; ``chunked`` has no sharded joint and raises."""
+    V-sharded joint (``model.joint.tp_mesh``) runs whichever path the
+    loss resolves to on its slice of V: K1 and K2 for ``pallas``, the
+    chunked joint of ``parallel/partition.py`` for ``chunked``."""
     if spec.loss_impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss_impl {spec.loss_impl!r}")
     if spec.loss_impl == "pruned" and spec.lattice_shard_t:
@@ -189,12 +191,7 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
                 *args, band=spec.pruned_band,
                 simple_scale=spec.pruned_simple_scale,
                 pruned_scale=spec.pruned_scale, grad_clamp=spec.grad_clamp)
-        sharded = model.joint.tp_mesh is not None
-        if sharded and spec.loss_impl == "chunked":
-            raise ValueError("loss_impl='chunked' has no vocabulary-sharded joint; "
-                             "use auto, pallas or pruned on a tensor-parallel mesh")
-        if tshard_mesh is None and (
-                sharded or resolve_loss_impl(spec.loss_impl, audio.device) == "pallas"):
+        if tshard_mesh is None and resolve_loss_impl(spec.loss_impl, audio.device) == "pallas":
             return transducer_loss_pallas(*args, grad_clamp=spec.grad_clamp)
         return transducer_loss(*args, chunk_size=spec.loss_chunk_size,
                                grad_clamp=spec.grad_clamp, mesh=tshard_mesh)

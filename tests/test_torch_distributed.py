@@ -12,7 +12,7 @@
   equal to the 1-rank resume;
 * the guards: a rank without a card, ``lattice_shard_t`` without a model
   axis or with the pruned loss, a batch that does not split over the data
-  axis, the chunked loss on a tensor-parallel mesh;
+  axis; the chunked loss on a tensor-parallel mesh passes them;
 * ``CudaKernel.launch`` runs on its tensors' device and that device's
   stream.
 
@@ -196,13 +196,21 @@ def test_rank_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("extra,data,model,match", [
     (["training.lattice_shard_t=true"], 1, 1, "lattice_shard_t"),
     (["training.global_batch_size=6"], 4, 1, "does not divide"),
-    (["training.loss_impl=chunked"], 1, 2, "no tensor-parallel joint"),
-], ids=["shard-t-without-model-axis", "batch-over-data", "chunked-tensor-parallel"])
+], ids=["shard-t-without-model-axis", "batch-over-data"])
 def test_check_mesh_refuses(vocab, extra, data, model, match):
     cfg = tconfig.apply_overrides(tconfig.load_config(tconfig.resolve_config(
         "tiny_conv")), _overrides(vocab, *extra))
     with pytest.raises(ValueError, match=match):
         tconfig.check_mesh(cfg, data, model)
+
+
+@pytest.mark.parametrize("data,model", [(1, 2), (2, 2)], ids=["model-2", "data-2-model-2"])
+def test_check_mesh_accepts_chunked_tensor_parallel(vocab, data, model):
+    """The chunked loss runs on a tensor-parallel mesh (its joint on V
+    slices, parallel/partition.py), with or without data ranks."""
+    cfg = tconfig.apply_overrides(tconfig.load_config(tconfig.resolve_config(
+        "tiny_conv")), _overrides(vocab, "training.loss_impl=chunked"))
+    tconfig.check_mesh(cfg, data, model)
 
 
 def test_lattice_shard_t_refuses_pruned(vocab):

@@ -11,7 +11,8 @@ against rnnt_tpu and against the port's own 1-rank step.
 * 4 gloo ranks at data 2 x model 2 (tests/torch_ranks.py) against JAX's
   jitted step on the (2, 2) CPU mesh for ``pallas``, ``pruned`` (band 8:
   the port rounds a band up to a multiple of 8, as the reference's fused
-  path does, where JAX's CPU path keeps 4) and ``pruned_warmup``, 2 steps
+  path does, where JAX's CPU path keeps 4), ``pruned_warmup`` and
+  ``chunked`` (the chunked joint on V slices), 2 steps
   of 8 targets (a lattice of 17 columns): loss and gradient norms within 1e-4 relative, the
   gathered parameters within 1e-4 (relative and absolute); against the
   port's 1-rank step, metrics within 1e-5 relative and parameters within
@@ -65,7 +66,7 @@ from torch_ranks import RUN_TIMEOUT, free_port, mesh_train_rank, run_ranks  # no
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL_JAX = 1e-4
-IMPLS = ("pallas", "pruned", "pruned_warmup")
+IMPLS = ("pallas", "pruned", "pruned_warmup", "chunked")
 
 
 # --------------------------- K1 / K2 on V slices ---------------------------
@@ -211,7 +212,7 @@ def _jax_steps(impl, params, state, batches, mesh_shape):
 
 @pytest.fixture(scope="module")
 def tp_runs():
-    """The three objectives on 4 ranks (data 2 x model 2), on 1 rank in
+    """The four objectives on 4 ranks (data 2 x model 2), on 1 rank in
     this process and in JAX on the (2, 2) mesh, 2 steps of batch 4."""
     tcfg = _tiny(tconfig.Config())
     fspec = tconfig.build_featurizer_spec(tcfg)
@@ -267,7 +268,7 @@ def test_tp_ranks_hold_their_shards(tp_runs):
             want = {"joint.out.w": (64, 512), "joint.out.b": (512,),
                     "encoder.out.w": (32, 32), "encoder.out.b": (32,),
                     "predictor.linear.w": (32, 32), "predictor.linear.b": (32,)}
-            if impl != "pallas":
+            if impl.startswith("pruned"):
                 want.update({f"joint.simple.{h}.{p}": s for h in ("am", "lm")
                              for p, s in (("w", (64, 512)), ("b", (512,)))})
             assert held == {n: [s, s, s] for n, s in want.items()}

@@ -1,6 +1,7 @@
 """Run a function on n ranks of a gloo process group in spawned CPU
 processes, for the port's multi-rank tests (tests/test_torch_tshard.py,
-tests/test_torch_distributed.py, tests/test_torch_tp.py).
+tests/test_torch_distributed.py, tests/test_torch_tp.py,
+tests/test_torch_tp_chunked.py).
 
 The rank functions live here, not in the test files, so a spawned process
 imports torch and the port only, never JAX.  Every run has its own
@@ -143,6 +144,96 @@ def loss_fn_rank(data: int, model: int, cfg, state_dict: dict, batch: dict):
     with torch.no_grad():
         loss = fn(m, step.batch_to_device({k: v[rows] for k, v in batch.items()}, "cpu"))
     return dict(place=(mesh.data_rank, mesh.model_rank), loss=float(loss))
+
+
+def chunked_joint_rank(data: int, model: int, arrays: dict, blank: int, chunk_size: int,
+                       clamps: tuple):
+    """The chunked joint with ``joint.out`` cut to this rank's slice of V
+    (``shard_params`` on a holder of a projection-free ``Joint`` built from
+    ``arrays``' whole w (H, V) and b (V,)): for each grad_clamp in
+    ``clamps``, the lattice log-probs, the mean loss of ``transducer_loss``
+    and its gradients in audio, text and the slice's w and b."""
+    from torch import nn
+
+    from rnnt_tpu_torch.models.joint import Joint, JointSpec
+    from rnnt_tpu_torch.ops.transducer import joint_lattice_log_probs, transducer_loss
+    from rnnt_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    mesh = make_mesh(data, model)
+    H, V = arrays["w"].shape
+    holder = nn.Module()
+    holder.joint = Joint(JointSpec(0, 0, H, V), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        holder.joint.out.w.copy_(torch.from_numpy(arrays["w"]))
+        holder.joint.out.b.copy_(torch.from_numpy(arrays["b"]))
+    layout = shard_params(holder, mesh)
+    joint = holder.joint
+    t = {k: torch.from_numpy(arrays[k]) for k in ("targets", "t_lens", "u_lens")}
+    out = {}
+    for clamp in clamps:
+        audio, text = (torch.tensor(arrays[k], requires_grad=True) for k in ("audio", "text"))
+        with torch.no_grad():
+            lpb, lpl = joint_lattice_log_probs(joint, audio, text, t["targets"], t["u_lens"],
+                                               blank, chunk_size, clamp)
+        loss = transducer_loss(joint, audio, text, t["targets"], t["t_lens"], t["u_lens"],
+                               blank, chunk_size=chunk_size, grad_clamp=clamp)
+        grads = torch.autograd.grad(loss, (audio, text, joint.out.w, joint.out.b))
+        out[clamp] = dict(lp_blank=lpb.numpy(), lp_label=lpl.numpy(), loss=float(loss),
+                          grads=[g.numpy() for g in grads])
+    return dict(model_rank=mesh.model_rank, layout=layout, runs=out)
+
+
+def sharded_loss_route_rank(data: int, model: int, overrides: list, impls: tuple,
+                            batch: dict):
+    """For each loss_impl in ``impls``: the train loss of tiny_conv
+    (seed-0 weights, the simple heads for the pruned objectives) cut to
+    this rank's shards, and of the same model whole, on the CPU; which
+    joints each ran (calls of the chunked V-sharded joint and of K1 and
+    K2's plain versions) and the hand-written kernels' launch counts."""
+    import dataclasses
+
+    from rnnt_tpu_torch.models.rnnt import rnnt_init
+    from rnnt_tpu_torch.ops import kernels, transducer_pallas
+    from rnnt_tpu_torch.parallel import partition
+    from rnnt_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from rnnt_tpu_torch.train import step
+
+    calls = {}
+
+    def spy(module, name):
+        inner = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return inner(*args, **kwargs)
+
+        setattr(module, name, counted)
+
+    spy(partition, "chunked_joint_log_probs_tp")
+    spy(transducer_pallas, "fused_joint_outputs_plain")
+    spy(transducer_pallas, "fused_joint_bwd_plain")
+    mesh = make_mesh(data, model)
+    out = {}
+    for impl in impls:
+        cfg, spec, fspec = _tiny_setup(overrides + [
+            f"training.loss_impl={'pruned' if impl.startswith('pruned') else impl}"])
+        local = step.batch_to_device(batch, "cpu")
+        fn = step.make_loss_fn(dataclasses.replace(spec, loss_impl=impl), fspec,
+                               cfg.training.precision)
+        losses = []
+        for sharded in (True, False):
+            m = rnnt_init(spec, seed=0)
+            if sharded:
+                shard_params(m, mesh)
+            calls.clear()
+            loss = fn(m, local, training=True)
+            loss.backward()
+            losses.append(float(loss))
+            if sharded:
+                out[impl] = dict(calls=dict(calls), launches=kernels.launch_counts(),
+                                 tp_mesh=m.joint.tp_mesh is not None)
+        out[impl].update(loss_sharded=losses[0], loss_whole=losses[1])
+    return out
 
 
 def flat_params(params: dict) -> np.ndarray:
