@@ -3,8 +3,10 @@
 Port of ``rnnt_tpu/cli/train.py``: ``--resume`` a checkpoint directory,
 ``--max-steps`` for short runs, ``--output-base`` for the run directories,
 ``--set key.path=value`` config overrides, ``--profile`` (a torch.profiler
-trace of steps 3-6 into ``<run_dir>/trace``), and ``--device`` (CUDA
-unless ``--device cpu``; without CUDA it raises).  Prints the final WER.
+trace of steps 3-6 into ``<run_dir>/trace``, each step's ``train_step``
+split into ``forward``, ``backward``, ``grad_norm`` and ``optimizer``:
+the spans of ``train/profiling.py``), and ``--device`` (CUDA unless
+``--device cpu``; without CUDA it raises).  Prints the final WER.
 TF32 is off for float32 matmuls and cuDNN convolutions (both flags set),
 so fp32 training means fp32; the start-up line says so, and whether the
 host tokenizer encodes in C++ (``rnnt_tpu_torch/native``, built by g++)

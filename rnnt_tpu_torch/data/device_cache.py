@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from rnnt_tpu_torch.data.dataset import BatchIterator
+from rnnt_tpu_torch.train.profiling import span
 
 _KEYS = ("audio", "audio_lens", "targets", "target_lens")
 
@@ -113,9 +114,12 @@ def gather_rows(group: dict, idx) -> dict:
 
 def make_cached_train_step(step_fn):
     """Wrap ``step(state, batch, generator)`` as ``step(state, group, idx,
-    generator)``: the batch is gathered from the cached group first."""
+    generator)``: the batch is gathered from the cached group first, in a
+    ``gather`` span of the step (``train/profiling.py``)."""
 
     def cached_step(state, group, idx, generator):
-        return step_fn(state, gather_rows(group, idx), generator)
+        with span("gather", step=getattr(state, "step", None)):
+            batch = gather_rows(group, idx)
+        return step_fn(state, batch, generator)
 
     return cached_step

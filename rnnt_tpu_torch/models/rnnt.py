@@ -4,7 +4,8 @@ Port of ``rnnt_tpu/models/rnnt.py``.  ``RNNT`` holds the three modules
 under the JAX params' top-level names; ``rnnt_forward`` runs the predictor
 on blank-prepended targets and the encoder on features, in eval or in
 training mode (dropout from an explicit generator, batch statistics), and
-returns the new batch-norm state as the JAX ``rnnt_forward`` does.
+returns the new batch-norm state as the JAX ``rnnt_forward`` does; the two
+run in ``predictor`` and ``encoder`` spans (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from rnnt_tpu_torch.models.predictor import (
     predictor_apply,
 )
 from rnnt_tpu_torch.ops.norm import Norm
+from rnnt_tpu_torch.train.profiling import span
 
 
 @dataclass(frozen=True)
@@ -108,9 +110,11 @@ def rnnt_forward(model: RNNT, features: torch.Tensor, targets: torch.Tensor,
     new_state): the batch-norm running statistics after this forward (the
     current ones outside training).  A generator of None turns dropout off,
     as ``rng=None`` does in JAX."""
-    text = predictor_apply(model.predictor,
-                           prepend_blank(targets, model.spec.blank_idx),
-                           training, generator)
+    with span("predictor"):
+        text = predictor_apply(model.predictor,
+                               prepend_blank(targets, model.spec.blank_idx),
+                               training, generator)
     new_state: dict = {}
-    audio = model.encoder(features, training, generator, new_state)
+    with span("encoder"):
+        audio = model.encoder(features, training, generator, new_state)
     return audio, text, {**model.norm_state(), **new_state}

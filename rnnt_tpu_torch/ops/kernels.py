@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from rnnt_tpu_torch.train.profiling import span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rnnt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -95,7 +97,7 @@ class CudaKernel:
         """Call the C entry point with ``args`` (tensors become their data
         pointers; every tensor must lie on one CUDA device) on that
         device's current stream, with that device current, inside a
-        ``launch <name>`` span of the profiler's trace; raise on a CUDA
+        ``launch <name>`` span (``train/profiling.py``); raise on a CUDA
         error; count the launch."""
         devices = {a.device for a in args if isinstance(a, torch.Tensor)}
         if len(devices) != 1:
@@ -103,7 +105,7 @@ class CudaKernel:
                              "expected one CUDA device")
         (dev,) = devices
         c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
-        with torch.cuda.device(dev), torch.profiler.record_function(f"launch {self.name}"):
+        with torch.cuda.device(dev), span(f"launch {self.name}"):
             stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
             err = self.fn()(*c_args, stream)
         if err != 0:

@@ -21,11 +21,13 @@ Port of ``rnnt_tpu/train/loop.py``:
   periodic checkpoints (``train/checkpoint.py``), a final checkpoint that
   waits, and the last WER returned; ``profile=True`` writes a
   torch.profiler trace of steps 3-6 (``trace/rank<r>.json.gz``, each step a
-  ``step N`` span split into ``data``, ``train_step`` and
-  ``bookkeeping``).  Each step's record in ``metrics.jsonl`` also
-  holds ``launches/<kernel>``, the hand-written kernels' launches in that
-  step on rank 0 (0 on the CPU, where their plain versions run), and on
-  more than one rank ``launches_by_rank/<kernel>`` and
+  ``step N`` span split into ``data``, the step's own ``train_step`` with
+  its ``forward``, ``backward``, ``grad_norm`` and ``optimizer``, and
+  ``bookkeeping``: the spans of ``train/profiling.py``).  Each step's
+  record in ``metrics.jsonl`` also holds ``launches/<kernel>``, the
+  hand-written kernels' launches in that step on rank 0 (0 on the CPU,
+  where their plain versions run), and on more than one rank
+  ``launches_by_rank/<kernel>`` and
   ``total_norm_by_rank/train``, every rank's; an eval's record holds
   ``eval_launches/<kernel>``.
 
@@ -60,7 +62,6 @@ gathered whole model (``parallel/mesh.whole_model``), not sharded.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import time
@@ -111,7 +112,7 @@ from rnnt_tpu_torch.parallel.mesh import (
 from rnnt_tpu_torch.train import checkpoint as ckpt
 from rnnt_tpu_torch.train.metrics import wer
 from rnnt_tpu_torch.train.optim import make_optimizer
-from rnnt_tpu_torch.train.profiling import start_trace, stop_trace
+from rnnt_tpu_torch.train.profiling import span, start_trace, stop_trace
 from rnnt_tpu_torch.train.step import (
     TrainState,
     batch_to_device,
@@ -594,11 +595,6 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                       f"epoch {epoch}: {it.rows_loaded} rows loaded and host-augmented, "
                       f"{n} batches of {it.batch_size} rows", flush=True)
 
-    def region(name: str):
-        """A labelled span in the profiler's trace (nothing when not tracing)."""
-        return (torch.profiler.record_function(name) if prof is not None
-                else contextlib.nullcontext())
-
     def stop_profile() -> None:
         nonlocal prof
         if dev.type == "cuda":
@@ -620,19 +616,17 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 prof = start_trace(dev)  # steps 3-6 of this run
-            with region(f"step {state.step + 1}"):
-                with region("data"):
+            with span(f"step {state.step + 1}", step=state.step):
+                with span("data"):
                     item = next(batches, None)
                 if item is None:
                     break
                 batch, seconds = item
                 fn = warm_fn if warm_fn is not None and state.step < warmup_until else step_fn
                 before = launch_counts()
-                with region("train_step"):
-                    state, metrics = fn(state, batch,
-                                        step_generator(dev, tc.seed, state.step))
+                state, metrics = fn(state, batch, step_generator(dev, tc.seed, state.step))
                 launched = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
-                with region("bookkeeping"):
+                with span("bookkeeping"):
                     audio_secs += seconds
                     pending.append((state.step, metrics, launched))
                     if state.step % tc.log_steps == 0:

@@ -67,6 +67,7 @@ from rnnt_tpu_torch.ops.transducer_pruned import (
 )
 from rnnt_tpu_torch.parallel.mesh import all_reduce_sum, squared_norms
 from rnnt_tpu_torch.train.optim import OptState
+from rnnt_tpu_torch.train.profiling import span
 from rnnt_tpu_torch.utils import RowGenerator, batch_draw
 
 LOSS_IMPLS = ("auto", "pallas", "chunked", "pruned", "pruned_warmup")
@@ -150,30 +151,31 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
     def loss_fn(model: RNNT, batch: dict, *, training: bool = False,
                 generator: torch.Generator | None = None,
                 new_state: dict | None = None) -> torch.Tensor:
-        wave = decode_wire_audio(batch["audio"])
-        audio_lens = batch["audio_lens"]
-        augmenting = training and generator is not None
-        if device_augment and augmenting:
-            B, L = wave.shape
-            if device_augment == "full":
-                draws = batch_draw(generator, B, lambda g, n: (
-                    augment_device.device_augment_full_draws(
-                        g, n, L, device=wave.device)))
-                wave, audio_lens = augment_device.device_augment_full_apply(
-                    draws, wave, audio_lens, fspec.sample_rate)
-            else:
-                draws = batch_draw(generator, B, lambda g, n: (
-                    augment_device.device_augment_draws(
-                        g, n, L, device=wave.device)))
-                wave = augment_device.device_augment_apply(
-                    draws, wave, audio_lens, fspec.sample_rate)
-        feats = featurize(wave)
-        if spec_augment and augmenting:
-            B, T, F = feats.shape
-            draws = batch_draw(generator, B, lambda g, n: augment.spec_augment_draws(
-                g, n, T, F, device=feats.device))
-            feats = augment.spec_augment_apply(feats, draws)
-        feats = feats.to(dtype)
+        with span("featurize"):
+            wave = decode_wire_audio(batch["audio"])
+            audio_lens = batch["audio_lens"]
+            augmenting = training and generator is not None
+            if device_augment and augmenting:
+                B, L = wave.shape
+                if device_augment == "full":
+                    draws = batch_draw(generator, B, lambda g, n: (
+                        augment_device.device_augment_full_draws(
+                            g, n, L, device=wave.device)))
+                    wave, audio_lens = augment_device.device_augment_full_apply(
+                        draws, wave, audio_lens, fspec.sample_rate)
+                else:
+                    draws = batch_draw(generator, B, lambda g, n: (
+                        augment_device.device_augment_draws(
+                            g, n, L, device=wave.device)))
+                    wave = augment_device.device_augment_apply(
+                        draws, wave, audio_lens, fspec.sample_rate)
+            feats = featurize(wave)
+            if spec_augment and augmenting:
+                B, T, F = feats.shape
+                draws = batch_draw(generator, B, lambda g, n: augment.spec_augment_draws(
+                    g, n, T, F, device=feats.device))
+                feats = augment.spec_augment_apply(feats, draws)
+            feats = feats.to(dtype)
         feat_lens = feature_lens_from_samples(audio_lens, fspec)
         audio, text, state = rnnt_forward(model, feats, batch["targets"],
                                           training=training, generator=generator)
@@ -182,19 +184,20 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
         t_lens = encoder_out_len(feat_lens, spec.encoder)
         args = (model.joint, audio, text, batch["targets"], t_lens,
                 batch["target_lens"], spec.blank_idx)
-        if spec.loss_impl == "pruned_warmup":
-            return pruned_warmup_loss(
-                *args, simple_scale=spec.pruned_simple_scale,
-                chunk_size=spec.loss_chunk_size, grad_clamp=spec.grad_clamp)
-        if spec.loss_impl == "pruned":
-            return pruned_transducer_loss(
-                *args, band=spec.pruned_band,
-                simple_scale=spec.pruned_simple_scale,
-                pruned_scale=spec.pruned_scale, grad_clamp=spec.grad_clamp)
-        if tshard_mesh is None and resolve_loss_impl(spec.loss_impl, audio.device) == "pallas":
-            return transducer_loss_pallas(*args, grad_clamp=spec.grad_clamp)
-        return transducer_loss(*args, chunk_size=spec.loss_chunk_size,
-                               grad_clamp=spec.grad_clamp, mesh=tshard_mesh)
+        with span("loss"):
+            if spec.loss_impl == "pruned_warmup":
+                return pruned_warmup_loss(
+                    *args, simple_scale=spec.pruned_simple_scale,
+                    chunk_size=spec.loss_chunk_size, grad_clamp=spec.grad_clamp)
+            if spec.loss_impl == "pruned":
+                return pruned_transducer_loss(
+                    *args, band=spec.pruned_band,
+                    simple_scale=spec.pruned_simple_scale,
+                    pruned_scale=spec.pruned_scale, grad_clamp=spec.grad_clamp)
+            if tshard_mesh is None and resolve_loss_impl(spec.loss_impl, audio.device) == "pallas":
+                return transducer_loss_pallas(*args, grad_clamp=spec.grad_clamp)
+            return transducer_loss(*args, chunk_size=spec.loss_chunk_size,
+                                   grad_clamp=spec.grad_clamp, mesh=tshard_mesh)
 
     return loss_fn
 
@@ -245,7 +248,10 @@ def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
     augmentation and no dropout) draws the augmentations and the dropout
     bits.  Metrics are 0-d tensors of the global batch: loss, grad_norm
     (before the clip), total_target_len and
-    grad_norm/{encoder,predictor,joint}."""
+    grad_norm/{encoder,predictor,joint}.  The step runs in a
+    ``train_step`` span with the state's step number, split into
+    ``forward``, ``backward``, ``grad_norm`` and ``optimizer``
+    (``train/profiling.py``)."""
     loss_fn = make_loss_fn(spec, fspec, precision, spec_augment=spec_augment,
                            device_augment=device_augment, mesh=mesh)
     multi = mesh is not None and mesh.world > 1
@@ -255,38 +261,42 @@ def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
     stats_group = mesh.data_group if multi and mesh.data > 1 else None
 
     def step(state: TrainState, batch: dict, generator):
-        model = state.model
-        names, params = zip(*model.named_parameters())
-        if multi and mesh.data > 1 and generator is not None:
-            B = batch["target_lens"].shape[0]
-            generator = RowGenerator(generator, mesh.data_rank * B, mesh.data * B)
-        new_norm: dict = {}
-        with batch_stats_over(stats_group):
-            loss = loss_fn(model, batch, training=True, generator=generator,
-                           new_state=new_norm)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g.float()
-                 for p, g in zip(params, grads)]
-        loss, target_len = loss.detach(), batch["target_lens"].sum()
-        layout = getattr(model, "tp_layout", {})
-        if tshard:
-            grads = sync_grads(grads, 1.0 / mesh.data)
-        elif multi:
-            grads = sync_tp_grads(names, grads, layout, mesh)
-        if multi:
-            both = all_reduce_sum(torch.stack([loss.float(), target_len.float()]))
-            loss = both[0] / mesh.world  # the model ranks' losses are equal
-            target_len = torch.round(both[1] / mesh.model).long()
-        named = dict(zip(names, grads))
-        sq = squared_norms(named, layout, mesh)
-        metrics = {"loss": loss, "grad_norm": torch.sqrt(sum(sq.values())),
-                   "total_target_len": target_len}
-        for sub in SUBMODELS:
-            metrics[f"grad_norm/{sub}"] = torch.sqrt(sq.get(sub, torch.zeros(())))
-        opt_state = optimizer.update(
-            dict(zip(names, params)), named, state.opt_state,
-            norm=lambda gs: torch.sqrt(sum(squared_norms(gs, layout, mesh).values())))
-        model.commit_norm_state(new_norm)
-        return TrainState(model, opt_state, state.step + 1), metrics
+        with span("train_step", step=state.step):
+            model = state.model
+            names, params = zip(*model.named_parameters())
+            if multi and mesh.data > 1 and generator is not None:
+                B = batch["target_lens"].shape[0]
+                generator = RowGenerator(generator, mesh.data_rank * B, mesh.data * B)
+            new_norm: dict = {}
+            with span("forward"), batch_stats_over(stats_group):
+                loss = loss_fn(model, batch, training=True, generator=generator,
+                               new_state=new_norm)
+            with span("backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g.float()
+                         for p, g in zip(params, grads)]
+            loss, target_len = loss.detach(), batch["target_lens"].sum()
+            layout = getattr(model, "tp_layout", {})
+            if tshard:
+                grads = sync_grads(grads, 1.0 / mesh.data)
+            elif multi:
+                grads = sync_tp_grads(names, grads, layout, mesh)
+            if multi:
+                both = all_reduce_sum(torch.stack([loss.float(), target_len.float()]))
+                loss = both[0] / mesh.world  # the model ranks' losses are equal
+                target_len = torch.round(both[1] / mesh.model).long()
+            named = dict(zip(names, grads))
+            with span("grad_norm"):
+                sq = squared_norms(named, layout, mesh)
+                metrics = {"loss": loss, "grad_norm": torch.sqrt(sum(sq.values())),
+                           "total_target_len": target_len}
+                for sub in SUBMODELS:
+                    metrics[f"grad_norm/{sub}"] = torch.sqrt(sq.get(sub, torch.zeros(())))
+            with span("optimizer"):
+                opt_state = optimizer.update(
+                    dict(zip(names, params)), named, state.opt_state,
+                    norm=lambda gs: torch.sqrt(sum(squared_norms(gs, layout, mesh).values())))
+                model.commit_norm_state(new_norm)
+            return TrainState(model, opt_state, state.step + 1), metrics
 
     return step
