@@ -2344,13 +2344,15 @@ TRAIN_OVERRIDES = ["data.dataset=synthetic",
 
 def _read_steps(run_dir: Path) -> list[dict]:
     """Per-step records of a run's metrics.jsonl (log_steps = 1): loss,
-    gradient norm, seconds, audio-s/s and the kernels' launches in the step."""
+    gradient norm, seconds, audio-s/s, the kernels' launches in the step and
+    the dilated convs run by phases (``conv_folds``)."""
     rows: dict[int, dict] = {}
     for line in (run_dir / "metrics.jsonl").read_text().splitlines():
         r = json.loads(line)
         rows.setdefault(r["step"], {}).update(r)
     return [dict(step=s, loss=r["loss/train"], grad_norm=r["total_norm/train"],
                  seconds=r["step_seconds"], audio_s_per_s=r["audio_seconds_per_sec"],
+                 conv_folds=r.get("conv_folds"),
                  launches={k.split("/", 1)[1]: n for k, n in r.items()
                            if k.startswith("launches/")},
                  by_rank={k.split("/", 1)[1]: n for k, n in r.items()
@@ -2397,13 +2399,17 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
         for st in steps:
             log(f"  {tag} step {st['step']}: loss {st['loss']:.4f}, grad norm "
                 f"{st['grad_norm']:.4f}, {st['seconds']:.4f} s, "
-                f"{st['audio_s_per_s']:.2f} audio-s/s, launches {st['launches']}")
+                f"{st['audio_s_per_s']:.2f} audio-s/s, launches {st['launches']}, "
+                f"conv folds {st['conv_folds']}")
             if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
                 raise AssertionError(f"{tag}: non-finite step {st}")
             missing = [k.name for k in kernels if k.name != k5 and not st["launches"].get(k.name)]
             if missing:
                 raise AssertionError(f"{tag} step {st['step']}: kernels not "
                                      f"launched: {missing}")
+            if st["conv_folds"] != folds:
+                raise AssertionError(f"{tag} step {st['step']}: {st['conv_folds']} "
+                                     f"convs run by phases, expected {folds}")
             if k5 is not None and st["launches"].get(k5) != k5_per_step:
                 raise AssertionError(f"{tag} step {st['step']}: K5 launched "
                                      f"{st['launches'].get(k5)} times, expected {k5_per_step}")
@@ -2413,8 +2419,13 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
         runs[key] = dict(launches=launches, steps=steps, run_dir=run_dir, seconds=secs,
                          cache=cache_line)
 
-    from rnnt_tpu_torch.config.config import load_config, resolve_config
-    model_name = load_config(resolve_config(config)).model_name
+    from rnnt_tpu_torch.config.config import (
+        apply_overrides, build_model_spec, load_config, resolve_config)
+    cfg = apply_overrides(load_config(resolve_config(config)), list(overrides))
+    model_name = cfg.model_name
+    # One fold a step for each dilated conv (the epilogue); none in float32.
+    folds = 0 if cfg.training.precision == "fp32" else sum(
+        cs.stride == 1 and cs.dilation > 1 for cs in build_model_spec(cfg).encoder.conv_specs())
     # The flagship's data settings: augment true, augment_device full,
     # staging auto (the corpus cached on the card).
     run("pruned warmup (steps 1-2)", "pruned_warmup", ["--max-steps", str(warmup_steps)],

@@ -26,7 +26,9 @@ Port of ``rnnt_tpu/train/loop.py``:
   ``bookkeeping``: the spans of ``train/profiling.py``).  Each step's
   record in ``metrics.jsonl`` also holds ``launches/<kernel>``, the
   hand-written kernels' launches in that step on rank 0 (0 on the CPU,
-  where their plain versions run), and on more than one rank
+  where their plain versions run), ``conv_folds``, the dilated convs
+  that step ran by phases (``ops/causal_conv.py`` ``FOLDS``), and on more
+  than one rank
   ``launches_by_rank/<kernel>`` and
   ``total_norm_by_rank/train``, every rank's; an eval's record holds
   ``eval_launches/<kernel>``.
@@ -99,6 +101,7 @@ from rnnt_tpu_torch.data.pipeline import PrefetchIterator
 from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer
 from rnnt_tpu_torch.decode.greedy import greedy_decode
 from rnnt_tpu_torch.models.rnnt import RNNT, rnnt_init
+from rnnt_tpu_torch.ops import causal_conv
 from rnnt_tpu_torch.ops.kernels import launch_counts
 from rnnt_tpu_torch.parallel.mesh import (
     Mesh,
@@ -454,7 +457,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
 
     logger = MetricsLogger(output_dir) if is_main else None
     last_wer = float("nan")
-    pending: list = []  # (step, metrics of 0-d tensors, kernel launches)
+    pending: list = []  # (step, metrics of 0-d tensors, kernel launches, conv folds)
     t_log = time.time()
     audio_secs = 0.0
 
@@ -469,7 +472,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             raise FloatingPointError(
                 f"non-finite loss {last_loss} at step {pending[-1][0]}; "
                 f"emergency checkpoint saved to {output_dir}")
-        mine = [dict(launched, grad_norm=float(m["grad_norm"])) for _, m, launched in pending]
+        mine = [dict(launched, grad_norm=float(m["grad_norm"])) for _, m, launched, _ in pending]
         by_rank = [mine]
         if mesh.world > 1:
             by_rank = [None] * mesh.world
@@ -477,7 +480,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
         if not is_main:
             pending, audio_secs, t_log = [], 0.0, time.time()
             return
-        for i, (s, m, launched) in enumerate(pending):
+        for i, (s, m, launched, folds) in enumerate(pending):
             scalars = {"loss/train": float(m["loss"]),
                        "total_norm/train": float(m["grad_norm"]),
                        "learning_rate": sched(s - 1),
@@ -486,6 +489,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             scalars.update({f"total_norm/{k.split('/', 1)[1]}": float(v)
                             for k, v in m.items() if k.startswith("grad_norm/")})
             scalars.update({f"launches/{k}": n for k, n in launched.items()})
+            scalars["conv_folds"] = folds
             if mesh.world > 1:
                 scalars.update({f"launches_by_rank/{k}": [r[i][k] for r in by_rank]
                                 for k in launched})
@@ -623,12 +627,13 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                     break
                 batch, seconds = item
                 fn = warm_fn if warm_fn is not None and state.step < warmup_until else step_fn
-                before = launch_counts()
+                before, folds = launch_counts(), causal_conv.FOLDS
                 state, metrics = fn(state, batch, step_generator(dev, tc.seed, state.step))
                 launched = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
+                folds = causal_conv.FOLDS - folds
                 with span("bookkeeping"):
                     audio_secs += seconds
-                    pending.append((state.step, metrics, launched))
+                    pending.append((state.step, metrics, launched, folds))
                     if state.step % tc.log_steps == 0:
                         flush(epoch)
                     if state.step % tc.eval_steps == 0 or state.step == total_steps:

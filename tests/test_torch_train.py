@@ -346,6 +346,8 @@ def test_cli_train_writes_checkpoint_cli_eval_reads(vocab, tmp_path, capsys):
                           "launches/window_gather", "launches/alpha_chain",
                           "launches/beta_chain"}
                and not any(x.values()) for x in launches)
+    # Each step logs its convs run by phases: none in this run's float32.
+    assert [r["conv_folds"] for r in rows if "loss/train" in r] == [0, 0, 0]
     out = capsys.readouterr().out
     assert "TF32 off" in out and f"final wer: {final_wer}" in out
     res = tcli_eval.main([str(ckpt), "--device", "cpu", "--batch-size", "2",
