@@ -6,8 +6,12 @@ A cell of ``BENCHMARK.json`` names a configuration (its JSON under
 ``benchmark/configs``) and a traffic mix (``benchmark/traffic/<mix>.json``,
 whose ``kind`` names the driver ``benchmark/drivers/<kind>.py``); its
 limits are in ``benchmark/cells/<cell>.json``; each per-layer metric is
-read by ``benchmark/layers/<metric>.py``.  Nothing here names a cell,
-a configuration or a metric, so a new one is new files and an entry.
+read by ``benchmark/layers/<metric>.py``; a configuration's ``reference``
+key names its architecture, whose plain model is
+``benchmark/reference/<arch>.py`` and whose operation count is
+``benchmark/cost/<arch>.py``.  Nothing here names a cell, a
+configuration, an architecture or a metric, so a new one is new files and
+an entry.
 """
 
 from __future__ import annotations
@@ -67,6 +71,19 @@ class Cell:
         kind = self.mix["kind"]
         path = self.root / "drivers" / f"{kind}.py"
         return load_file(f"benchmark_driver_{kind}", path)
+
+    def architecture(self, part: str):
+        """The configuration's architecture's module under ``part``
+        (``reference`` or ``cost``): ``benchmark/<part>/<arch>.py``."""
+        arch = self.conf.get("reference")
+        if not arch:
+            raise SystemExit(f"configuration {self.entry['config']!r} has no 'reference' "
+                             "key naming its architecture")
+        path = self.root / part / f"{arch}.py"
+        if not path.is_file():
+            raise SystemExit(f"configuration {self.entry['config']!r} names the "
+                             f"architecture {arch!r}, but {path} is missing")
+        return load_file(f"benchmark_{part}_{arch}", path)
 
 
 def load_file(modname: str, path: Path):

@@ -10,12 +10,13 @@ the same bound for the work a batch needs: its rows' unpadded lattices
 U+1) lattice; what they do beyond the needed work is not counted, so a
 kernel that skips the padding reads higher.
 
-``train_step_flops`` counts the useful operations of one training step:
-the featurizer's DFT product forward, and the forward and backward of the
-encoder's convolutions, the predictor and the joint's output product at
-each utterance's unpadded lengths.  A product's backward is two products
-(the input's and the weight's gradients), except where the input needs no
-gradient (the encoder's first convolution); nothing recomputed counts.
+The rest counts the useful operations of the parts of a training step
+that the architectures share, at one utterance's unpadded lengths: the
+featurizer's products forward (the DFT, and for ``mel`` the filterbank),
+and the forward and backward of the predictor's and the joint's output
+products.  A product's backward is two products (the input's and the
+weight's gradients); nothing recomputed counts.  Each architecture's
+``benchmark/cost/<arch>.py`` adds its encoder in ``train_step_flops``.
 """
 
 from __future__ import annotations
@@ -48,62 +49,32 @@ def k2_bound_ms(B, T, U1, H, V) -> float:
     return k2_work_ms(B * T * U1, B * T, B * U1, H, V)
 
 
-def conv_layers(enc: dict) -> list[tuple[int, int, int, int, int, int]]:
-    """(cin, cout, kernel, stride, dilation, lookahead) of every encoder
-    convolution in order, the 1x1 residual and output products included as
-    kernel-1 convolutions; a residual is marked by stride 0 (it runs at its
-    block's input length and does not change the running length)."""
-    first = enc["blocks"][0]["in_channels"]
-    out = [(enc["input_features"], first, enc["prologue_kernel_size"],
-            enc["prologue_stride"], enc.get("prologue_dilation", 1), 0)]
-    for b in enc["blocks"]:
-        out.append((b["in_channels"], b["out_channels"], 1, 0, 1, 0))
-        for i in range(b["num_sub_blocks"]):
-            cin = b["in_channels"] if i == 0 else b["out_channels"]
-            out.append((cin, b["out_channels"], b["kernel_size"], 1, 1,
-                        b.get("additional_context", 0)))
-    last = enc["blocks"][-1]["out_channels"]
-    out.append((last, enc["epilogue_features"], enc["epilogue_kernel_size"],
-                enc.get("epilogue_stride", 1), enc.get("epilogue_dilation", 2), 0))
-    out.append((enc["epilogue_features"], enc["output_features"], 1, 1, 1, 0))
-    return out
-
-
-def _out_len(n: int, k: int, s: int, d: int, look: int) -> int:
-    pad = (k - 1) * d - s + 1 - look
-    return max((n + pad - d * (k - 1) - 1) // s + 1, 0)
-
-
-def encoder_flops(enc: dict, frames: int) -> tuple[float, int]:
-    """(forward flops, output frames) of the encoder over ``frames``
-    feature frames of one utterance."""
-    flops, n = 0.0, frames
-    for cin, cout, k, s, d, look in conv_layers(enc):
-        if s == 0:  # a residual product at the block input's length
-            flops += 2.0 * n * cin * cout
-            continue
-        n = _out_len(n, k, s, d, look)
-        flops += 2.0 * n * cin * cout * k
-    return flops, n
-
-
-def train_step_flops(model: dict, frames, tokens) -> float:
-    """Useful operations of one training step over utterances of
-    ``frames`` feature frames and ``tokens`` target tokens each."""
-    enc, pred = model["encoder"], model["predictor"]
-    fz = model["featurizer"]
-    H, V = model["joint"]["hidden_features"], model["num_total_symbols"]
+def featurizer_flops(fz: dict, frames: int) -> float:
+    """The featurizer's products over ``frames`` frames (no gradient)."""
     bins = fz["n_fft"] // 2 + 1
-    first = conv_layers(enc)[0]
-    total = 0.0
-    for f, u in zip(frames, tokens):
-        f, u1 = int(f), int(u) + 1
-        fwd, t = encoder_flops(enc, f)
-        # backward: 2x forward, less the first convolution's input gradient
-        first_fwd = 2.0 * _out_len(f, *first[2:]) * first[0] * first[1] * first[2]
-        total += 3.0 * fwd - first_fwd
-        total += 2.0 * f * 2 * bins * fz["n_fft"]
-        e = pred["symbol_embedding_dim"]
-        total += 3.0 * 2.0 * u1 * (e * e * 3 + e * e * 5 + e * pred["output_dim"])
-        total += 3.0 * 2.0 * t * u1 * H * V
-    return total
+    flops = 2.0 * frames * 2 * bins * fz["n_fft"]
+    if fz["kind"] == "mel":
+        flops += 2.0 * frames * bins * fz["num_mels"]
+    return flops
+
+
+def predictor_flops(pred: dict, u1: int) -> float:
+    """Forward and backward of the predictor's products over ``u1``
+    positions: the conv predictor's two convolutions (3 and 5 taps) and
+    output layer, or each LSTM layer's ``x2g`` and ``p2g`` (four gates) and
+    the output layer."""
+    e, out = pred["symbol_embedding_dim"], pred["output_dim"]
+    if pred["kind"] == "conv":
+        return 3.0 * 2.0 * u1 * (e * e * 3 + e * e * 5 + e * out)
+    if pred["kind"] == "lstm":
+        h = pred["lstm_hidden_dim"]
+        per = sum(((e if i == 0 else h) + h) * 4 * h for i in range(pred["num_lstm_layers"]))
+        return 3.0 * 2.0 * u1 * (per + h * out)
+    raise ValueError(f"predictor kind {pred['kind']!r} is not counted")
+
+
+def joint_flops(model: dict, t: int, u1: int) -> float:
+    """Forward and backward of the joint's output product over a (t, u1)
+    lattice."""
+    H, V = model["joint"]["hidden_features"], model["num_total_symbols"]
+    return 3.0 * 2.0 * t * u1 * H * V

@@ -3,16 +3,20 @@ on-card corpus cache (``data/device_cache.py``), with TF32 off as
 ``cli.train`` sets it, no dropout and no augmentation (the step is called
 without a generator).
 
-Set-up builds the one train state, caches ``cache_rows`` utterances of the
-mix on the card, and drives the state through its first ``check_steps``
-steps by the window's own call over the first batches of the first epoch
-(rows all different); those steps also warm every shape up.  The window
-goes on with the same state.  The reference follows the check steps from
-the same weights and rows: each step's loss, the first gradient as the
-optimizer took it (its first moment after one step over 1 - beta1), and
-the parameters' change over the check steps, each of the last two by the
-worst leaf: the gap of the leaf's norms over the larger of the
-reference's norm of that leaf and of the median leaf.  Leaves whose
+The configuration's architecture (``core.Cell.architecture``) gives the
+plain reference (``benchmark/reference/<arch>.py``: frames, encoder
+lengths and each row's NLL) and the operation count
+(``benchmark/cost/<arch>.py``).  Set-up builds the one train state, caches
+``cache_rows`` utterances of the mix on the card, and drives the state
+through its first ``check_steps`` steps by the window's own call over the
+first batches of the first epoch (rows all different); those steps also
+warm every shape up.  The window goes on with the same state.  The
+reference follows the check steps from the same weights and rows: each
+step's loss, the first gradient as the optimizer took it (its first moment
+after one step over 1 - beta1), and the parameters' change over the check
+steps, each of the last two by the worst leaf: the gap of the leaf's norms
+over the larger of the reference's norm of that leaf and of the median
+leaf.  Leaves whose
 reference gradient is under a thousandth of the median leaf's (biases
 that a following instance norm cancels) move by rounding only and are
 left out of both.
@@ -30,8 +34,7 @@ import numpy as np
 import torch
 
 from benchmark import port, workload
-from benchmark.cost.roofline import train_step_flops
-from benchmark.reference import model as ref
+from benchmark.reference.common import adamw_step, strict_fp32
 
 
 def setup(run):
@@ -44,6 +47,7 @@ def setup(run):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mix, conf, dev = run.cell.mix, run.cell.conf, run.device
+    ref, cost = run.cell.architecture("reference"), run.cell.architecture("cost")
     B = mix["batch"]
     cfg = port.load_config(conf, [f"training.global_batch_size={B}"])
     tc = cfg.training
@@ -63,10 +67,11 @@ def setup(run):
              "targets": workload.transcripts(counts, U, conf["model"]["num_text_tokens"], g, dev),
              "target_lens": torch.as_tensor(counts, dtype=torch.int32, device=dev)}
     cache = DeviceSampleCache([group], [lens.astype(np.int32)])
-    frames = (lens - fz["n_fft"]) // fz["hop_length"] + 1
-    flops = np.array([train_step_flops(conf["model"], [f], [u]) for f, u in zip(frames, counts)])
+    frames = ref.num_frames(lens, fz)
+    flops = np.array([cost.train_step_flops(conf["model"], [f], [u])
+                      for f, u in zip(frames, counts)])
     # Each row's unpadded lattice (t, u + 1): the work K1 and K2 need.
-    run.values["row_t"] = ref.encoder_out_len(frames, conf["model"]["encoder"]).astype(np.int64)
+    run.values["row_t"] = ref.encoder_out_len(frames, conf["model"]).astype(np.int64)
     run.values["row_u1"] = counts.astype(np.int64) + 1
 
     def batches():
@@ -92,7 +97,7 @@ def setup(run):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return {"state": state, "step": step, "cache": cache, "it": it, "weights": weights,
-            "rows": rows, "losses": [float(x) for x in losses],
+            "ref": ref, "rows": rows, "losses": [float(x) for x in losses],
             "grad_norms": {n: float(v) for n, v in grad_norms.items()},
             "change": {n: float(v) for n, v in change.items()},
             "flops": flops, "launch_counts": launch_counts}
@@ -134,10 +139,8 @@ def window(run, st):
 def reference_steps(run, st, quant=None):
     """The reference's losses, first clipped gradient and change over the
     check steps (float32, TF32 off; ``quant`` rounds its products)."""
-    conf, mix = run.cell.conf, run.cell.mix
+    conf, mix, ref = run.cell.conf, run.cell.mix, st["ref"]
     model = conf["model"]
-    fz, enc = model["featurizer"], model["encoder"]
-    blank = model["num_total_symbols"] - 1
     tr = model["training"]
     opt = {"lr": tr["optimizer"]["lr"], "b1": tr["optimizer"]["betas"][0],
            "b2": tr["optimizer"]["betas"][1], "eps": tr["optimizer"]["eps"],
@@ -159,14 +162,9 @@ def reference_steps(run, st, quant=None):
         for s in range(0, B, block):
             rows = slice(k * B + s, k * B + min(s + block, B))
             wave = group["audio"][rows].float() / workload.WIRE_SCALE
-            lens = group["audio_lens"][rows].long()
-            t_lens = ref.encoder_out_len(ref.num_frames(lens, fz), enc)
-            u_lens = group["target_lens"][rows].long()
-            audio = ref.encoder(P, enc, ref.featurize(wave, fz), quant)
-            text = ref.predictor(P, group["targets"][rows], blank, quant)
-            lp_b, lp_l = ref.lattice_log_probs(ref.joint_logits(P, audio, text, quant),
-                                               group["targets"][rows].long(), blank)
-            loss = ref.nll(lp_b, lp_l, t_lens, u_lens).sum() / B
+            loss = ref.rows_nll(P, model, wave, group["audio_lens"][rows].long(),
+                                group["targets"][rows], group["target_lens"][rows].long(),
+                                quant).sum() / B
             gs = torch.autograd.grad(loss, [P[n] for n in names], allow_unused=True)
             for n, gr in zip(names, gs):
                 if gr is not None:
@@ -174,7 +172,7 @@ def reference_steps(run, st, quant=None):
             total += float(loss.detach())
         losses.append(total)
         params = {n: P[n].data for n in names}
-        clipped = ref.adamw_step(params, grads, state, opt)
+        clipped = adamw_step(params, grads, state, opt)
         if k == 0:
             first = {n: float(torch.linalg.vector_norm(clipped[n])) for n in names}
             raw = {n: float(torch.linalg.vector_norm(grads[n])) for n in names}
@@ -220,7 +218,7 @@ def check(run, st):
     keep_rows(st)
     if run.device.type == "cuda":
         torch.cuda.empty_cache()
-    with ref.strict_fp32():
+    with strict_fp32():
         st["reference"] = reference_steps(run, st)
     return compare(st, st["reference"]), run.counters["steps"], 0
 
@@ -228,5 +226,5 @@ def check(run, st):
 def control(run, st, quant="fp8"):
     """The control's readings: the reference computed with ``quant``
     products, in the program's place."""
-    with ref.strict_fp32():
+    with strict_fp32():
         return compare(reference_steps(run, st, quant), st["reference"])

@@ -8,8 +8,11 @@ every convolution and linear layer (each slice scaled by its layer's
 Kaiming bound 1/sqrt(fan_in), the port's own distribution), one normal
 draw for the embedding, and one uniform draw for batch-norm running
 statistics (mean and variance in [0.5, 1.5]); norms' scales are 1 and
-their biases 0; the joint's blank output bias is given.  The same
-tensors, copied, are what the plain reference is given.
+their biases 0; the joint's blank output bias is given.  A parameter or
+buffer that none of these rules names is refused: the model is made on
+the meta device and moved with ``to_empty``, so it would hold whatever
+memory it was given.  The same tensors, copied, are what the plain
+reference is given.
 """
 
 from __future__ import annotations
@@ -58,11 +61,18 @@ def build_model(cfg, seed: int, device, blank_bias: float = 0.0):
     model = model.to_empty(device=device).eval()
     g = torch.Generator(device=device).manual_seed(seed)
     named = dict(model.named_parameters())
+    bufs = dict(model.named_buffers())
     bounds = {}
     for name, p in named.items():
-        if name.endswith(".w") or name.endswith(".b"):
+        if (name.endswith(".w") or name.endswith(".b")) and name[:-2] + ".w" in named:
             w = named[name[:-2] + ".w"]
             bounds[name] = fan_in(name[:-2] + ".w", w) ** -0.5
+    undrawn = [n for n in named if n not in bounds and n != "predictor.embedding"
+               and not n.endswith((".scale", ".bias"))]
+    undrawn += [n for n in bufs if not n.endswith((".mean", ".var"))]
+    if undrawn:
+        raise ValueError(f"the benchmark draws no value for {', '.join(undrawn)}: "
+                         "benchmark/port.py build_model needs a rule for each")
     total = sum(named[n].numel() for n in bounds)
     flat = torch.rand(total, generator=g, device=device).mul_(2.0).sub_(1.0)
     off = 0
@@ -77,7 +87,6 @@ def build_model(cfg, seed: int, device, blank_bias: float = 0.0):
             p.fill_(1.0)
         elif name.endswith(".bias") and name not in bounds:
             p.fill_(0.0)
-    bufs = dict(model.named_buffers())
     if bufs:
         n = sum(b.numel() for b in bufs.values())
         draw = torch.rand(n, generator=g, device=device).add_(0.5)

@@ -1,20 +1,24 @@
-"""Plain float32 reference of the Jasper-encoder / conv-predictor RNN-T.
+"""The plain pieces every architecture's reference shares (float32).
 
 It reads the configuration's ``model`` block (``benchmark/configs``) and a
 dict of parameters by their dotted names, and computes:
 
-* ``featurize``: frames of ``n_fft`` samples every ``hop`` samples, a
-  periodic Hann window, the power of the real FFT, and the configured log
-  compression (``spectrogram``: log above 0.01 and the continuing line of
-  slope 50 below; ``old_piecewise``: the power times 32767^2, log above e
-  and divided by e below), then ``(x - mean) * invstddev``;
-* ``encoder``: causal convolutions (left pad ``(k-1)d - s + 1`` less the
-  block's lookahead), norms over the time axis (instance, padding
-  included) or by running statistics (batch), exact GELU, a 1x1 residual
-  added before each block's last activation and cut to its surviving
-  frames, a dilated epilogue and a 1x1 output;
-* ``predictor``: embedding, layer norm, causal convolutions of 3 and 5,
-  GELU, a linear layer and a layer norm over blank-prepended targets;
+* ``featurize``: frames of ``n_fft`` samples every ``hop`` samples (with
+  ``center``, after a reflect pad of ``n_fft // 2`` on both sides), a
+  periodic Hann window of ``win_length`` centred in the frame, the power of
+  the real FFT, for ``mel`` the product with an HTK-scale triangular
+  filterbank (torchaudio ``MelSpectrogram``'s defaults: 0 Hz to half the
+  sample rate, no area normalization), and the configured log compression
+  (``spectrogram``: log above 0.01 and the continuing line of slope 50
+  below; ``old_piecewise`` and ``mel``: the power times 32767^2, log above
+  e and divided by e below), then ``(x - mean) * invstddev``;
+* ``num_frames``: the frames of an utterance of so many samples;
+* ``predictor``: over blank-prepended targets, an embedding and a layer
+  norm, then either causal convolutions of 3 and 5 with GELU (``conv``) or
+  LSTM layers (``lstm``: ``x2g`` over the whole sequence, ``p2g`` on the
+  carried output each step; with layer norm, ``x2g`` has no bias, a layer
+  norm over all four gates before the i, f, c, o split and one over the
+  new cell, which is carried), then a linear layer and a layer norm;
 * ``joint_logits``: ``out(tanh(audio_t + text_u))``, blank the last class;
 * ``nll``: the exact transducer NLL by the alpha recursion, one
   anti-diagonal at a time, differentiable by autograd;
@@ -24,9 +28,8 @@ dict of parameters by their dotted names, and computes:
 
 ``quant`` ("bf16" or "fp8") rounds both operands of every product and
 convolution to that type and back, everything else staying float32: the
-lower-precision controls.  Training-mode batch norm is not modelled (the
-training cells' configurations use instance norms), nor dropout or
-augmentation, which the benchmark turns off.
+lower-precision controls.  Dropout is not modelled: the benchmark turns it
+off.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 NEG = -1e30
-_EPS = 1e-5
+EPS = 1e-5
 _QUANT = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
 
 
@@ -62,9 +65,28 @@ def q(x: torch.Tensor, quant: str | None) -> torch.Tensor:
     return x.to(_QUANT[quant]).float()
 
 
+def mel_filterbank(fz: dict, device) -> torch.Tensor:
+    """(n_fft // 2 + 1, num_mels) float32: triangles evenly spaced on the
+    HTK mel scale, m = 2595 log10(1 + f / 700), from 0 Hz to half the
+    sample rate, each rising from its left neighbour's centre to 1 at its
+    own and falling to 0 at its right neighbour's."""
+    bins, sr = fz["n_fft"] // 2 + 1, fz["sample_rate"]
+    freqs = torch.linspace(0.0, float(sr // 2), bins, dtype=torch.float64)
+    top = 2595.0 * math.log10(1.0 + (sr / 2.0) / 700.0)
+    pts = 700.0 * (10.0 ** (torch.linspace(0.0, top, fz["num_mels"] + 2,
+                                           dtype=torch.float64) / 2595.0) - 1.0)
+    lo, mid, hi = pts[:-2], pts[1:-1], pts[2:]
+    rise = (freqs[:, None] - lo) / (mid - lo)
+    fall = (hi - freqs[:, None]) / (hi - mid)
+    return torch.minimum(rise, fall).clamp(min=0.0).float().to(device)
+
+
 def featurize(wave: torch.Tensor, fz: dict) -> torch.Tensor:
-    """wave (B, L) float32 -> (B, frames, n_fft // 2 + 1)."""
+    """wave (B, L) float32 -> (B, frames, bins): ``n_fft // 2 + 1`` bins,
+    or ``num_mels`` for ``mel``."""
     n_fft, hop, win = fz["n_fft"], fz["hop_length"], fz["win_length"]
+    if fz["center"]:
+        wave = F.pad(wave[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     frames = wave.unfold(-1, n_fft, hop)
     n = torch.arange(win, device=wave.device, dtype=torch.float64)
     hann = 0.5 * (1.0 - torch.cos(2.0 * math.pi * n / win))
@@ -73,11 +95,13 @@ def featurize(wave: torch.Tensor, fz: dict) -> torch.Tensor:
     window[left:left + win] = hann
     spec = torch.fft.rfft(frames * window.float(), n=n_fft)
     power = spec.real ** 2 + spec.imag ** 2
+    if fz["kind"] == "mel":
+        power = torch.matmul(power, mel_filterbank(fz, wave.device))
     if fz["kind"] == "spectrogram":
         cutoff, slope = 10e-3, 50.0
         feats = torch.where(power > cutoff, torch.log(power.clamp(min=cutoff)),
                             slope * power + (math.log(cutoff) - slope * cutoff))
-    elif fz["kind"] == "old_piecewise":
+    elif fz["kind"] in ("old_piecewise", "mel"):
         x = (power + 1e-6) * 32767.0 ** 2
         feats = torch.where(x > math.e, torch.log(x.clamp(min=math.e)), x / math.e)
     else:
@@ -88,6 +112,8 @@ def featurize(wave: torch.Tensor, fz: dict) -> torch.Tensor:
 
 
 def num_frames(samples, fz: dict):
+    if fz["center"]:
+        return samples // fz["hop_length"] + 1
     return (samples - fz["n_fft"]) // fz["hop_length"] + 1
 
 
@@ -100,77 +126,53 @@ def conv(x, w, b, k, s=1, d=1, look=0, quant=None):
 
 
 def linear(x, w, b, quant=None):
-    return torch.matmul(q(x, quant), q(w, quant)) + b
-
-
-def norm(x, P, name, kind):
-    if kind == "batch":
-        y = (x - P[f"{name}.mean"]) / torch.sqrt(P[f"{name}.var"] + _EPS)
-        return y * P[f"{name}.scale"] + P[f"{name}.bias"]
-    m = x.mean(dim=1, keepdim=True)
-    v = ((x - m) ** 2).mean(dim=1, keepdim=True)
-    y = (x - m) / torch.sqrt(v + _EPS)
-    if kind == "instance_affine":
-        y = y * P[f"{name}.scale"] + P[f"{name}.bias"]
-    return y
+    y = torch.matmul(q(x, quant), q(w, quant))
+    return y if b is None else y + b
 
 
 def layer_norm(x, P, name):
     m = x.mean(dim=-1, keepdim=True)
     v = ((x - m) ** 2).mean(dim=-1, keepdim=True)
-    return (x - m) / torch.sqrt(v + _EPS) * P[f"{name}.scale"] + P[f"{name}.bias"]
+    return (x - m) / torch.sqrt(v + EPS) * P[f"{name}.scale"] + P[f"{name}.bias"]
 
 
 def gelu(x):
     return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
 
 
-def encoder(P, enc: dict, x, quant=None):
-    kind = enc["norm_type"]
-    p = "encoder.prologue"
-    x = gelu(norm(conv(x, P[f"{p}.conv.w"], P[f"{p}.conv.b"], enc["prologue_kernel_size"],
-                       enc["prologue_stride"], enc.get("prologue_dilation", 1), quant=quant),
-                  P, f"{p}.norm", kind))
-    for i, blk in enumerate(enc["blocks"]):
-        p = f"encoder.blocks.{i}"
-        bkind = blk.get("norm_type") or kind
-        res = norm(linear(x, P[f"{p}.residual_conv.w"], P[f"{p}.residual_conv.b"], quant),
-                   P, f"{p}.residual_norm", bkind)
-        n = blk["num_sub_blocks"]
-        for j in range(n):
-            x = norm(conv(x, P[f"{p}.convs.{j}.w"], P[f"{p}.convs.{j}.b"], blk["kernel_size"],
-                          look=blk.get("additional_context", 0), quant=quant),
-                     P, f"{p}.norms.{j}", bkind)
-            if j == n - 1:
-                x = x + res[:, : x.shape[1]]
-            x = gelu(x)
-    p = "encoder.epilogue"
-    x = gelu(norm(conv(x, P[f"{p}.conv.w"], P[f"{p}.conv.b"], enc["epilogue_kernel_size"],
-                       enc.get("epilogue_stride", 1), enc.get("epilogue_dilation", 2),
-                       quant=quant), P, f"{p}.norm", kind))
-    return linear(x, P["encoder.out.w"], P["encoder.out.b"], quant)
+def lstm_layer(P, p: str, x, hidden: int, normed: bool, quant=None):
+    """One LSTM layer ``p`` over x (B, U, D) from a zero state -> (B, U, hidden)."""
+    gated = linear(x, P[f"{p}.x2g.w"], P.get(f"{p}.x2g.b"), quant)
+    h = c = torch.zeros((x.shape[0], hidden), device=x.device)
+    hs = []
+    for u in range(x.shape[1]):
+        gates = gated[:, u] + linear(h, P[f"{p}.p2g.w"], None, quant)
+        if normed:
+            gates = layer_norm(gates, P, f"{p}.g_norm")
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        if normed:
+            c = layer_norm(c, P, f"{p}.c_norm")
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
-def encoder_out_len(frames, enc: dict):
-    def out(n, k, s, d, look):
-        return (n + (k - 1) * d - s + 1 - look - d * (k - 1) - 1) // s + 1
-
-    n = out(frames, enc["prologue_kernel_size"], enc["prologue_stride"],
-            enc.get("prologue_dilation", 1), 0)
-    for blk in enc["blocks"]:
-        for _ in range(blk["num_sub_blocks"]):
-            n = out(n, blk["kernel_size"], 1, 1, blk.get("additional_context", 0))
-    return out(n, enc["epilogue_kernel_size"], enc.get("epilogue_stride", 1),
-               enc.get("epilogue_dilation", 2), 0)
-
-
-def predictor(P, tokens, blank: int, quant=None):
-    """tokens (B, U) -> (B, U+1, output_dim) over [blank] + tokens."""
+def predictor(P, pred: dict, tokens, blank: int, quant=None):
+    """tokens (B, U) -> (B, U+1, output_dim) over [blank] + tokens, by the
+    configuration's ``predictor.kind``."""
     col = torch.full((tokens.shape[0], 1), blank, dtype=torch.long, device=tokens.device)
     full = torch.cat([col, tokens.long()], dim=1)
     x = layer_norm(P["predictor.embedding"][full], P, "predictor.input_ln")
-    x = gelu(conv(x, P["predictor.conv1.w"], P["predictor.conv1.b"], 3, quant=quant))
-    x = gelu(conv(x, P["predictor.conv2.w"], P["predictor.conv2.b"], 5, quant=quant))
+    if pred["kind"] == "conv":
+        x = gelu(conv(x, P["predictor.conv1.w"], P["predictor.conv1.b"], 3, quant=quant))
+        x = gelu(conv(x, P["predictor.conv2.w"], P["predictor.conv2.b"], 5, quant=quant))
+    elif pred["kind"] == "lstm":
+        for i in range(pred["num_lstm_layers"]):
+            x = lstm_layer(P, f"predictor.layers.{i}", x, pred["lstm_hidden_dim"],
+                           pred["lstm_layer_norm"], quant)
+    else:
+        raise ValueError(f"predictor kind {pred['kind']!r} is not modelled")
     x = linear(x, P["predictor.linear.w"], P["predictor.linear.b"], quant)
     return layer_norm(x, P, "predictor.output_ln")
 

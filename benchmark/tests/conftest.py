@@ -35,8 +35,8 @@ def tiny_conf(port_yaml="tiny_conv", overrides=()) -> dict:
         apply_overrides(load_config(resolve_config(port_yaml)), ov))))
     model = {k: d[k] for k in MODEL_KEYS}
     model["training"] = {k: d["training"][k] for k in TRAINING_KEYS}
-    return {"name": "tiny", "source": "tests", "port_yaml": port_yaml, "overrides": ov,
-            "changed": {}, "reduced": [], "model": model}
+    return {"name": "tiny", "source": "tests", "port_yaml": port_yaml, "reference": "jasper",
+            "overrides": ov, "changed": {}, "reduced": [], "model": model}
 
 
 MIX = {"kind": "train", "batch": 4, "seconds": [1.0, 2.0], "frame_bucket": 256,

@@ -8,8 +8,13 @@ import pytest
 import torch
 
 from benchmark import port, workload
-from benchmark.reference import model as ref
+from benchmark.reference import common as ref
+from benchmark.reference import jasper
 from benchmark.tests.conftest import tiny_conf
+
+# base_sp_lstm's front end: torchaudio MelSpectrogram framing, 80 mels.
+MEL = ["featurizer.kind=mel", "featurizer.n_fft=512", "featurizer.num_mels=80",
+       "featurizer.center=true", "encoder.input_features=80"]
 
 
 def tiny(overrides=(), seed=3):
@@ -25,17 +30,24 @@ def wave(n=2, seconds=2.0, seed=5):
     return workload.wire_audio(lens, int(lens.max()), g, "cpu"), lens
 
 
-@pytest.mark.parametrize("kind", ["spectrogram", "old_piecewise"])
+@pytest.mark.parametrize("kind", ["spectrogram", "old_piecewise", "mel"])
 def test_featurizer(kind):
+    """Each front end against the port's; ``mel`` is centred (a reflect pad)
+    and compressed as ``old_piecewise``."""
     from rnnt_tpu_torch.config.config import build_featurizer_spec
     from rnnt_tpu_torch.ops.stft import make_featurizer
 
-    conf, cfg, _, _ = tiny([f"featurizer.kind={kind}"])
-    pcm, _ = wave()
+    conf, cfg, _, _ = tiny(MEL if kind == "mel" else [f"featurizer.kind={kind}"])
+    pcm, lens = wave()
     x = pcm.float() / workload.WIRE_SCALE
-    want = make_featurizer(build_featurizer_spec(cfg))(x)
-    got = ref.featurize(x, conf["model"]["featurizer"])
+    fspec = build_featurizer_spec(cfg)
+    want = make_featurizer(fspec)(x)
+    fz = conf["model"]["featurizer"]
+    got = ref.featurize(x, fz)
     assert got.shape == want.shape
+    assert got.shape[1] == fspec.num_frames(x.shape[1]) == ref.num_frames(x.shape[1], fz)
+    assert [fspec.num_frames(int(n)) for n in lens] == list(ref.num_frames(lens, fz))
+    assert ref.num_frames(workload.samples_for_frames(256, fz), fz) == 256
     torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
 
 
@@ -50,11 +62,48 @@ def test_encoder_and_predictor(overrides):
     targets = torch.randint(0, 1023, (2, 9), generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         audio, text, _ = rnnt_forward(model, x, targets)
-        r_audio = ref.encoder(P, conf["model"]["encoder"], x)
-        r_text = ref.predictor(P, targets, 1023)
+        r_audio = jasper.encoder(P, conf["model"]["encoder"], x)
+        r_text = ref.predictor(P, conf["model"]["predictor"], targets, 1023)
     torch.testing.assert_close(r_audio, audio, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(r_text, text, atol=1e-4, rtol=1e-4)
-    assert int(ref.encoder_out_len(120, conf["model"]["encoder"])) == audio.shape[1]
+    assert int(jasper.encoder_out_len(120, conf["model"])) == audio.shape[1]
+
+
+@pytest.mark.parametrize("layer_norm", [True, False])
+def test_lstm_predictor(layer_norm):
+    """The LSTM predictor against the port's ``LSTMPredictor``: with layer
+    norm (base_sp_lstm's: ``x2g`` without bias, ``g_norm`` over the four
+    gates, ``c_norm`` over the cell) and without (``x2g`` with its bias)."""
+    from rnnt_tpu_torch.models.predictor import LSTMPredictor, predictor_apply
+
+    conf, cfg, model, P = tiny(["predictor.kind=lstm", "predictor.num_lstm_layers=2",
+                                "predictor.lstm_hidden_dim=96",
+                                f"predictor.lstm_layer_norm={str(layer_norm).lower()}"])
+    assert isinstance(model.predictor, LSTMPredictor)
+    assert ("predictor.layers.0.x2g.b" in P) != layer_norm
+    targets = torch.randint(0, 1023, (3, 11), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = predictor_apply(model.predictor, torch.cat(
+            [torch.full((3, 1), 1023), targets], dim=1))
+        got = ref.predictor(P, conf["model"]["predictor"], targets, 1023)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_build_model_refuses_an_undrawn_parameter(monkeypatch):
+    """A parameter that none of ``build_model``'s rules draws would keep
+    the memory ``to_empty`` left in it: it is refused, by name."""
+    from rnnt_tpu_torch.models import rnnt
+
+    class WithTable(rnnt.RNNT):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.encoder.pos_table = torch.nn.Parameter(torch.zeros(4, 8))
+
+    conf = tiny_conf(overrides=["training.precision=fp32"])
+    port.build_model(port.load_config(conf), 3, torch.device("cpu"))
+    monkeypatch.setattr(rnnt, "RNNT", WithTable)
+    with pytest.raises(ValueError, match=r"encoder\.pos_table"):
+        port.build_model(port.load_config(conf), 3, torch.device("cpu"))
 
 
 def test_encoder_lookahead():
@@ -74,8 +123,8 @@ def test_encoder_lookahead():
     x = torch.randn(1, 64, 201, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         want = model(x)
-        got = ref.encoder(P, enc, x)
-    assert int(ref.encoder_out_len(64, enc)) == want.shape[1]
+        got = jasper.encoder(P, enc, x)
+    assert int(jasper.encoder_out_len(64, {"encoder": enc})) == want.shape[1]
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 

@@ -61,6 +61,10 @@ def transcripts(counts, width: int, vocab: int, g: torch.Generator, device):
 
 
 def samples_for_frames(frames: int, fz: dict) -> int:
+    """The fewest samples that give ``frames`` frames: a centred featurizer
+    pads ``n_fft // 2`` on both sides and gives ``samples // hop + 1``."""
+    if fz["center"]:
+        return (frames - 1) * fz["hop_length"]
     return fz["n_fft"] + (frames - 1) * fz["hop_length"]
 
 
