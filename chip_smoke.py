@@ -11,7 +11,9 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    at the main paths' shapes — K1 and K2 at the eval shape, at the
    banded patches of the pruned loss (K2 with and without the gradient
    clamp) and at scaled_tp's joint width (2, 32, 17, 2048, 1024), K1 also
-   at two shapes whose H or V is not a multiple of 8, K3 and K4 at the
+   at two shapes whose H or V is not a multiple of 8, K1 and K2 with the
+   ReLU joint (``act='relu'``) at parakeet_rnnt_0.6b's training lattice
+   (32, 256, 65, 640, 1025), one launch each a call, K3 and K4 at the
    eval shape and at a long-label shape, K5 at the
    four calls one flagship ``device_augment_full`` makes (recorded from a
    call on a full-width batch: chorus, resample, trim, time-stretch frames)
@@ -436,6 +438,10 @@ K1_ODD = (dict(B=2, T=9, U1=5, H=36, V=37), dict(B=1, T=5, U1=130, H=100, V=1000
 # K2's softmax from K1's lse: each probed row's probabilities sum to 1
 # within this (both kernels round h by one device function).
 K1_K2_SUM_ATOL = 1e-5
+# K1 and K2 with the ReLU joint at parakeet_rnnt_0.6b's training lattice:
+# batch 32 in the 2048-frame / 64-token bucket (T' 256, U+1 65), H 640, V
+# 1024 pieces + blank (padded to 1032 by the wrapper).
+RELU_SHAPE = dict(B=32, T=256, U1=65, H=640, V=1025)
 
 
 def k1_gemm_ms(B, T, U1, H, V, device, reps: int) -> float:
@@ -582,6 +588,11 @@ def kernel_name(name: str) -> str:
     return (base.split("::")[-1] + (f"<{args}" if args else ""))[:60]
 
 
+# Profiler sessions tried before giving up: a short one now and then reports
+# no device events (3 in a row once, on torch 2.11's profiler).
+SESSIONS = 6
+
+
 def device_ms_by_kernel(fn, reps: int = 10) -> dict[str, float]:
     """{kernel name: mean device ms per call of ``fn``} (torch.profiler),
     after a warm-up call."""
@@ -589,7 +600,9 @@ def device_ms_by_kernel(fn, reps: int = 10) -> dict[str, float]:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then reports no device events
+    for attempt in range(SESSIONS):  # a session now and then reports no device events
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -602,7 +615,7 @@ def device_ms_by_kernel(fn, reps: int = 10) -> dict[str, float]:
             by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
         if by_name:
             return {k: v / reps / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
-    raise AssertionError("the profiler saw no device activity in 3 sessions")
+    raise AssertionError(f"the profiler saw no device activity in {SESSIONS} sessions")
 
 
 def k2_case(dims, device):
@@ -685,6 +698,63 @@ def k2_phase(device, cases=(("eval", EVAL_SHAPE), ("banded", BANDED_SHAPE),
             out[f"{tag}_case"] = m
         del args, cot
     return out
+
+
+def relu_joint_phase(device, dims=RELU_SHAPE, reps=10) -> tuple[dict, dict]:
+    """K1 and K2 with ``act='relu'`` against their plain versions at the
+    tanh cases' tolerances (K1_TOL; K2_REL_L2 on each output, clamp off and
+    at 0.01), one launch of each a call on the card, and their device ms
+    by kernel.  Returns (K1's case, K2's case)."""
+    from rnnt_tpu_torch.ops.transducer_pallas import (
+        K1, K2, fused_joint_backward, fused_joint_bwd_plain, fused_joint_forward,
+        fused_joint_outputs_plain)
+
+    on_card = torch.device(device).type == "cuda"
+    shape = "B={B} T={T} U1={U1} H={H} V={V}".format(**dims)
+    args = k1_inputs(**dims, device=device)
+    n1 = K1.launches
+    got = fused_joint_forward(*args, act="relu")
+    sync(device)
+    if on_card and K1.launches - n1 != 1:
+        raise AssertionError(f"K1 relu: {K1.launches - n1} launches for one call")
+    want = fused_joint_outputs_plain(*args, act="relu")
+    err1 = max(check_close(f"K1 relu {n}", g, w, **K1_TOL)
+               for n, g, w in zip(("lse", "blank", "label"), got, want))
+    lse = want[0]
+    del got, want
+    g = torch.Generator().manual_seed(1)
+    gb, gl = (torch.randn(dims["B"], dims["T"], dims["U1"], generator=g).to(device) * 0.3
+              for _ in range(2))
+    cot = (lse, gb, gl, -(gb + gl))
+    err2 = 0.0
+    for clamp in (-1.0, 0.01):
+        n2 = K2.launches
+        got = fused_joint_backward(*args, *cot, clamp, act="relu")
+        sync(device)
+        if on_card and K2.launches - n2 != 1:
+            raise AssertionError(f"K2 relu: {K2.launches - n2} launches for one call")
+        want = fused_joint_bwd_plain(*args, *cot, clamp, act="relu")
+        for n, x, y in zip(("denc", "dpred", "dW", "db"), got, want):
+            e = rel_l2(x, y)
+            if not (e <= K2_REL_L2 and bool(torch.isfinite(x).all())):
+                raise AssertionError(f"K2 relu clamp={clamp} {n}: relative L2 error "
+                                     f"{e:.3e} > {K2_REL_L2}")
+            err2 = max(err2, float((x - y).abs().max()))
+        del got, want
+    k1 = dict(max_abs_err=err1, shape=shape, launches_per_call=1)
+    k2 = dict(max_abs_err=err2, shape=shape, launches_per_call=1)
+    if on_card:
+        k1["passes_ms"] = device_ms_by_kernel(lambda: fused_joint_forward(*args, act="relu"),
+                                              reps)
+        k2["passes_ms"] = device_ms_by_kernel(
+            lambda: fused_joint_backward(*args, *cot, act="relu"), reps)
+        for m in (k1, k2):
+            m["device_ms"] = sum(m["passes_ms"].values())
+    log(f"K1 relu ok {dims}: max abs err {err1:.3e}, device "
+        f"{k1.get('device_ms', float('nan')):.4f} ms; K2 relu ok (clamp off and 0.01): "
+        f"max abs err {err2:.3e}, device {k2.get('device_ms', float('nan')):.4f} ms")
+    del args, cot
+    return k1, k2
 
 
 def train_kernel_phase(device, shape=EVAL_SHAPE, banded=BANDED_SHAPE,
@@ -1195,7 +1265,8 @@ def joint_fwd_arity(source: Path) -> int:
     15 for the earlier single-kernel design (enc, pred, w, bias, labels,
     lse, blank, label, B, T, U1, H, V, blank, stream), 17 for the h pass +
     wgmma design (h workspace, Hp and Vp added), 18 since the vocabulary
-    offset v0 (added after blank)."""
+    offset v0 (added after blank), 19 since the activation (added after
+    v0; 0 is tanh)."""
     text = source.read_text()
     m = re.search(r'extern "C" int rnnt_joint_fwd\(([^)]*)\)', text)
     if m is None:
@@ -1217,7 +1288,7 @@ def build_joint_fwd_trees(dirs: list[Path]) -> list[tuple[str, int, object]]:
         procs.append((d, out, subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(d / "joint_fwd.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = [("this", 18, K1.fn())]
+    fns = [("this", 19, K1.fn())]
     for d, out, proc in procs:
         build_log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -1226,10 +1297,11 @@ def build_joint_fwd_trees(dirs: list[Path]) -> list[tuple[str, int, object]]:
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {d}/joint_fwd.cu: {line.strip()}")
         arity = joint_fwd_arity(d / "joint_fwd.cu")
-        if arity not in (15, 17, 18):
+        if arity not in (15, 17, 18, 19):
             raise RuntimeError(f"{d}/joint_fwd.cu: rnnt_joint_fwd takes {arity} arguments")
         fn = getattr(ctypes.CDLL(str(out)), "rnnt_joint_fwd")
-        fn.argtypes = {18: K1.argtypes,
+        fn.argtypes = {19: K1.argtypes,
+                       18: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
                        17: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                        15: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}[arity]
         fn.restype = ctypes.c_int
@@ -1251,7 +1323,7 @@ def joint_fwd_call(fn, arity: int, inputs: list, h_ws, outs):
         args = (enc, pred, w, b, labels, *outs, B, T, U1, H, V, blank)
     else:
         args = (enc, pred, w, b, labels, h_ws, *outs, B, T, U1, H, V, V, blank)
-        args += (0,) if arity == 18 else ()
+        args += (0,) * (arity - 17)  # v0 = 0, then act = tanh
     c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
 
     def run():
@@ -3655,14 +3727,15 @@ class _RoundGradBF16(torch.autograd.Function):
 
 
 def joint_outputs_reference(enc, pred, w, b, labels, blank: int,
-                            grad_clamp: float = -1.0, mesh=None):
+                            grad_clamp: float = -1.0, mesh=None, act: str = "tanh"):
     """``fused_joint_outputs`` in plain PyTorch under autograd, rounded where
     K1 and K2 round and nowhere else: the bf16 sum before tanh and h in the
     forward, dl (the logits' cotangent) in bf16 for the dh and dW products;
-    dh, 1 - h^2 (of the rounded h) and every sum in float32.  A whole
+    dh, 1 - h^2 (of the rounded h) and every sum in float32.  A whole tanh
     joint only (no mesh)."""
-    if grad_clamp > 0 or mesh is not None:
-        raise ValueError("the reference joint takes no gradient clamp and no mesh")
+    if grad_clamp > 0 or mesh is not None or act != "tanh":
+        raise ValueError("the reference joint takes no gradient clamp, no mesh and "
+                         "tanh only")
     s = _RoundBF16.apply(enc.float()[:, :, None, :] + pred.float()[:, None, :, :])
     h = _TanhBF16.apply(s)
     logits = _RoundGradBF16.apply(h @ w.float()) + b.float()
@@ -4078,6 +4151,7 @@ def main() -> None:
     L = build_featurizer_spec(load_config(resolve_config("base_convjs"))).samples_for_frames(1024)
     measured = kernel_phase(device)
     measured.update(train_kernel_phase(device))
+    measured["K1"]["relu_case"], measured["K2"]["relu_case"] = relu_joint_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
         vocab = Path(tmp) / "tp_vocab.json"
         vocab.write_text(json.dumps(synthetic_piece_table()))
@@ -4128,7 +4202,7 @@ def main() -> None:
         extra = {c: m[c] for c in ("long_case", "banded_case", "wide_case", "cases",
                                    "passes_ms", "gemm_ms", "tflops", "device_ms",
                                    "critical_path_ms", "lse_step_ns", "other_tree",
-                                   "k1_k2_softmax_gap")
+                                   "k1_k2_softmax_gap", "relu_case")
                  if c in m}
         if k.name in path["launches"]:
             extra["eval_launches"] = path["launches"][k.name]

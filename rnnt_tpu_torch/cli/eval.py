@@ -23,6 +23,7 @@ from rnnt_tpu_torch.config.config import build_featurizer_spec, build_model_spec
 from rnnt_tpu_torch.decode.beam import beam_decode, beam_decode_nbest
 from rnnt_tpu_torch.decode.greedy import greedy_decode
 from rnnt_tpu_torch.decode.rescore import marginal_rescore
+from rnnt_tpu_torch.models.rnnt import refuse_unsupported
 from rnnt_tpu_torch.train.loop import _load_tokenizer, eval_batches
 from rnnt_tpu_torch.train.metrics import wer
 from rnnt_tpu_torch.train.step import batch_to_device, make_eval_forward
@@ -49,6 +50,8 @@ def main(argv=None) -> dict:
 
     cfg = load_config(args.config or find_config(args.checkpoint))
     spec = build_model_spec(cfg)
+    if args.beam > 0:
+        refuse_unsupported(spec, "beam search (cli.eval --beam)")
     fspec = build_featurizer_spec(cfg)
     tokenizer = _load_tokenizer(cfg)
     model = load_checkpoint(args.checkpoint, spec, dev)

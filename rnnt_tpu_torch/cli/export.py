@@ -42,6 +42,7 @@ from rnnt_tpu_torch.config.config import (
 from rnnt_tpu_torch.models.encoder import encoder_streaming_init_state
 from rnnt_tpu_torch.models.joint import joint_single
 from rnnt_tpu_torch.models.predictor import predictor_apply
+from rnnt_tpu_torch.models.rnnt import refuse_unsupported
 from rnnt_tpu_torch.ops.stft import make_featurizer
 from rnnt_tpu_torch.train.loop import _load_tokenizer
 from rnnt_tpu_torch.utils import resolve_device
@@ -121,6 +122,7 @@ def main(argv=None) -> Path:
     cfg = apply_overrides(load_config(args.config or find_config(args.checkpoint)),
                           args.overrides)
     spec = build_model_spec(cfg)
+    refuse_unsupported(spec, "cli.export (bundles)")
     fspec = build_featurizer_spec(cfg)
     tokenizer = _load_tokenizer(cfg)
     model = load_checkpoint(args.checkpoint, spec, dev)

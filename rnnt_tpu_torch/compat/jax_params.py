@@ -174,7 +174,12 @@ def _norm_state(norm) -> dict:
 
 
 def encoder_state(encoder) -> dict:
-    """The JAX encoder state pytree (batch-norm running stats)."""
+    """The JAX encoder state pytree (batch-norm running stats); a
+    FastConformer's (which the JAX package does not have) by its module
+    path, one conv module's norm a layer."""
+    if hasattr(encoder, "layers"):
+        return {"layers": [{"conv": {"norm": _norm_state(layer.conv.norm)}}
+                           for layer in encoder.layers]}
     return {
         "prologue": _norm_state(encoder.prologue["norm"]),
         "blocks": [{"norms": [_norm_state(n) for n in blk.norms],

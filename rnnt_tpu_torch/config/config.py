@@ -19,9 +19,11 @@ from typing import Any
 import yaml
 
 from rnnt_tpu_torch.models.encoder import EncoderSpec, JasperBlockSpec
+from rnnt_tpu_torch.models.fastconformer import FastConformerSpec
 from rnnt_tpu_torch.models.joint import JointSpec
-from rnnt_tpu_torch.models.predictor import ConvPredictorSpec, LSTMPredictorSpec
-from rnnt_tpu_torch.models.rnnt import RNNTSpec
+from rnnt_tpu_torch.models.predictor import (
+    ConvPredictorSpec, LSTMPredictorSpec, RNNPredictorSpec)
+from rnnt_tpu_torch.models.rnnt import RNNTSpec, refuse_unsupported
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec
 
 # The port's own copies of the named YAML configs.
@@ -52,7 +54,7 @@ class TokenizerConfig:
 
 @dataclass
 class FeaturizerConfig:
-    kind: str = "spectrogram"  # spectrogram | old_piecewise | mel | log
+    kind: str = "spectrogram"  # spectrogram | old_piecewise | mel | log | nemo_mel
     n_fft: int = 400
     win_length: int = 400
     hop_length: int = 160
@@ -66,7 +68,7 @@ class FeaturizerConfig:
 
 @dataclass
 class PredictorConfig:
-    kind: str = "conv"  # conv | lstm
+    kind: str = "conv"  # conv | lstm | rnn (NeMo's plain LSTM: embedding, LSTM)
     output_dim: int = 1024
     symbol_embedding_dim: int = 512
     dropout: float = 0.3
@@ -86,19 +88,43 @@ class BlockConfig:
     additional_context: int = 0
 
 
+def _new(default):
+    """A field added after the Jasper schema: ``config_to_dict`` writes it
+    only where it differs from its default, so the dict (and a saved
+    ``config.yaml``) of a config that does not use it is what it was."""
+    return field(default=default, metadata={"omit_default": True})
+
+
+def _jasper(**kw):
+    """A field only the Jasper encoder reads: ``config_to_dict`` leaves it
+    out of another encoder kind's dict."""
+    return field(metadata={"only_kind": "jasper"}, **kw)
+
+
 @dataclass
 class EncoderConfig:
+    # jasper (input_features and the ``_jasper`` fields) | fastconformer
+    # (input_features and the fields after output_features)
+    kind: str = _new("jasper")
     input_features: int = 201
-    norm_type: str = "instance_affine"
-    prologue_kernel_size: int = 11
-    prologue_stride: int = 2
-    prologue_dilation: int = 1
-    blocks: list[BlockConfig] = field(default_factory=list)
-    epilogue_features: int = 512
-    epilogue_kernel_size: int = 29
-    epilogue_stride: int = 1
-    epilogue_dilation: int = 2
-    output_features: int = 1024
+    norm_type: str = _jasper(default="instance_affine")
+    prologue_kernel_size: int = _jasper(default=11)
+    prologue_stride: int = _jasper(default=2)
+    prologue_dilation: int = _jasper(default=1)
+    blocks: list[BlockConfig] = _jasper(default_factory=list)
+    epilogue_features: int = _jasper(default=512)
+    epilogue_kernel_size: int = _jasper(default=29)
+    epilogue_stride: int = _jasper(default=1)
+    epilogue_dilation: int = _jasper(default=2)
+    output_features: int = _jasper(default=1024)
+    d_model: int = _new(0)
+    num_layers: int = _new(0)
+    num_heads: int = _new(0)
+    ff_expansion_factor: int = _new(0)
+    conv_kernel_size: int = _new(0)
+    subsampling_factor: int = _new(0)
+    subsampling_conv_channels: int = _new(0)
+    xscaling: bool = _new(False)
 
 
 @dataclass
@@ -106,6 +132,7 @@ class JointConfig:
     audio_features: int = -1
     text_features: int = -1
     hidden_features: int = 1024
+    activation: str = _new("tanh")  # tanh | relu
 
 
 @dataclass
@@ -301,7 +328,24 @@ def _coerce(value, current, path: str):
 
 
 def config_to_dict(cfg: Config) -> dict:
-    return dataclasses.asdict(cfg)
+    """The config as nested dicts, without the fields added after the
+    Jasper schema (``_new``) that hold their defaults, and without another
+    encoder kind's fields (``_jasper``)."""
+    def kept(obj, f) -> bool:
+        if f.metadata.get("omit_default") and getattr(obj, f.name) == f.default:
+            return False
+        kind = getattr(obj, "kind", None)
+        return f.metadata.get("only_kind", kind) == kind
+
+    def walk(obj):
+        if dataclasses.is_dataclass(obj):
+            return {f.name: walk(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                    if kept(obj, f)}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(walk(x) for x in obj)
+        return obj
+
+    return walk(cfg)
 
 
 def save_config(cfg: Config, path: str | Path) -> None:
@@ -320,6 +364,8 @@ def check_mesh(cfg: Config, data: int, model: int) -> None:
     if cfg.training.lattice_shard_t and model == 1:
         raise ValueError("training.lattice_shard_t shards the lattice's T axis "
                          "over mesh.model ranks; mesh.model is 1")
+    if model > 1:
+        refuse_unsupported(build_model_spec(cfg), f"a mesh with mesh.model={model}")
     if cfg.training.global_batch_size % data:
         raise ValueError(f"training.global_batch_size="
                          f"{cfg.training.global_batch_size} does not divide "
@@ -336,10 +382,15 @@ def build_featurizer_spec(cfg: Config) -> FeaturizerSpec:
         mean = stats.get("mean", stats.get("means"))
         invstd = stats["invstddev"]
     log_mode = {"spectrogram": "piecewise", "old_piecewise": "old_piecewise",
-                "mel": "old_piecewise", "log": "log"}[fc.kind]
+                "mel": "old_piecewise", "log": "log", "nemo_mel": "nemo"}.get(fc.kind)
+    if log_mode is None:
+        raise ValueError(f"unknown featurizer.kind {fc.kind!r}")
+    if fc.kind == "nemo_mel" and not fc.center:
+        raise ValueError("featurizer.kind='nemo_mel' frames are centred: set "
+                         "featurizer.center=true")
     return FeaturizerSpec(
         n_fft=fc.n_fft, win_length=fc.win_length, hop_length=fc.hop_length,
-        num_mels=fc.num_mels if fc.kind == "mel" else 0,
+        num_mels=fc.num_mels if fc.kind in ("mel", "nemo_mel") else 0,
         sample_rate=fc.sample_rate, log_mode=log_mode, center=fc.center,
         mean=tuple(mean) if isinstance(mean, (list, tuple)) else float(mean),
         invstddev=(tuple(invstd) if isinstance(invstd, (list, tuple))
@@ -347,8 +398,18 @@ def build_featurizer_spec(cfg: Config) -> FeaturizerSpec:
     )
 
 
-def build_model_spec(cfg: Config) -> RNNTSpec:
-    ec = cfg.encoder
+def build_encoder_spec(ec: EncoderConfig):
+    if ec.kind == "fastconformer":
+        return FastConformerSpec(
+            input_features=ec.input_features, d_model=ec.d_model,
+            num_layers=ec.num_layers, num_heads=ec.num_heads,
+            ff_expansion_factor=ec.ff_expansion_factor,
+            conv_kernel_size=ec.conv_kernel_size,
+            subsampling_factor=ec.subsampling_factor,
+            subsampling_conv_channels=ec.subsampling_conv_channels,
+            xscaling=ec.xscaling)
+    if ec.kind != "jasper":
+        raise ValueError(f"unknown encoder.kind {ec.kind!r}")
     blocks = tuple(
         JasperBlockSpec(
             kernel_size=b.kernel_size, in_channels=b.in_channels,
@@ -357,7 +418,7 @@ def build_model_spec(cfg: Config) -> RNNTSpec:
             norm_type=b.norm_type or ec.norm_type,
             additional_context=b.additional_context)
         for b in ec.blocks)
-    encoder = EncoderSpec(
+    return EncoderSpec(
         input_features=ec.input_features,
         prologue_kernel_size=ec.prologue_kernel_size,
         prologue_stride=ec.prologue_stride,
@@ -370,6 +431,9 @@ def build_model_spec(cfg: Config) -> RNNTSpec:
         output_features=ec.output_features,
         norm_type=ec.norm_type)
 
+
+def build_model_spec(cfg: Config) -> RNNTSpec:
+    encoder = build_encoder_spec(cfg.encoder)
     pc = cfg.predictor
     if pc.kind == "conv":
         predictor = ConvPredictorSpec(
@@ -383,6 +447,11 @@ def build_model_spec(cfg: Config) -> RNNTSpec:
             lstm_hidden_dim=pc.lstm_hidden_dim,
             lstm_layer_norm=pc.lstm_layer_norm,
             lstm_dropout=pc.dropout)
+    elif pc.kind == "rnn":
+        predictor = RNNPredictorSpec(
+            num_symbols=cfg.num_total_symbols,
+            symbol_embedding_dim=pc.symbol_embedding_dim,
+            num_lstm_layers=pc.num_lstm_layers, lstm_hidden_dim=pc.lstm_hidden_dim)
     else:
         raise ValueError(f"unknown predictor kind: {pc.kind}")
 
@@ -390,8 +459,8 @@ def build_model_spec(cfg: Config) -> RNNTSpec:
         audio_features=cfg.joint.audio_features,
         text_features=cfg.joint.text_features,
         hidden_features=cfg.joint.hidden_features,
-        num_classes=cfg.num_total_symbols)
-
+        num_classes=cfg.num_total_symbols,
+        activation=cfg.joint.activation)
     if cfg.training.loss_impl == "pruned" and cfg.training.lattice_shard_t:
         # The pruned banded DP never materializes the full-T lattice per
         # device the way lattice_shard_t addresses (its band is O(T*band)),

@@ -2,11 +2,12 @@
 //
 // Replaces rnnt_tpu/ops/transducer_pallas.py:155 _bwd_kernel (launcher
 // _bwd_pallas:280, call :333).  For every lattice cell (row) r = (b, t, u):
-//   h_r   = tanh(enc[b, t] + pred[b, u])              (bf16, as K1 rounds it)
+//   h_r   = act(enc[b, t] + pred[b, u])               (bf16, as K1 rounds it;
+//           act = tanh, or ReLU for act = 1)
 //   p_r   = exp(h_r . W + bias - lse_r)                (softmax from K1's lse)
 //   dl_r  = g_lse_r p_r + g_blank_r 1[blank] + g_label_r 1[label_r],
 //           clamped to +-grad_clamp when grad_clamp > 0
-//   dh_r  = dl_r . W^T,  dpre_r = dh_r (1 - h_r^2)
+//   dh_r  = dl_r . W^T,  dpre_r = dh_r act'(h_r): (1 - h_r^2), or [h_r > 0]
 //   denc[b, t] = sum_u dpre,  dpred[b, u] = sum_t dpre,
 //   dW = sum_r h_r^T dl_r,  db = sum_r dl_r
 // dl enters both products in bf16 (the TPU kernel casts it to W's dtype),
@@ -82,8 +83,8 @@ using sm90::ldp;
 // h = bf16(tanh(bf16(enc + pred))), rounded as K1 rounds it (joint_h.cuh).
 __global__ void __launch_bounds__(256)
 h_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
-         bf16* __restrict__ h, int T, int U1, int Hp) {
-  joint::h_rows(enc, pred, h, T, U1, Hp);
+         bf16* __restrict__ h, int T, int U1, int Hp, int act) {
+  joint::h_rows(enc, pred, h, T, U1, Hp, act);
 }
 
 // ------------------------------- dl pass -------------------------------
@@ -205,7 +206,7 @@ struct DhPass {
   struct Params {
     const bf16* h;
     float *denc, *dpred;
-    int T, U1, Hp, k_blocks, n_t, n_u, n_ht;
+    int T, U1, Hp, k_blocks, n_t, n_u, n_ht, act;
   };
   struct Tile {
     int b, t0, u0, h0, k_blocks;
@@ -254,14 +255,10 @@ struct DhPass {
         const bf16* h4 = reinterpret_cast<const bf16*>(&hv[i]);
         float4* a = reinterpret_cast<float4*>(acc + (r0 + (i0 + i) * GROUPS) * ldp(BN) + cc);
         float4 v = *a;
-        float hf = __bfloat162float(h4[0]);
-        v.x *= 1.f - hf * hf;
-        hf = __bfloat162float(h4[1]);
-        v.y *= 1.f - hf * hf;
-        hf = __bfloat162float(h4[2]);
-        v.z *= 1.f - hf * hf;
-        hf = __bfloat162float(h4[3]);
-        v.w *= 1.f - hf * hf;
+        v.x *= joint::joint_dact(__bfloat162float(h4[0]), p.act);
+        v.y *= joint::joint_dact(__bfloat162float(h4[1]), p.act);
+        v.z *= joint::joint_dact(__bfloat162float(h4[2]), p.act);
+        v.w *= joint::joint_dact(__bfloat162float(h4[3]), p.act);
         *a = v;
       }
     }
@@ -341,6 +338,7 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // dpred (B, U1, Hp), dw (Hp, Vp), db (V,): float32, ZEROED by the caller
 // (the passes add into them).  blank and the labels are global ids; W and
 // bias hold the columns of ids [v0, v0 + V).  grad_clamp <= 0: no clamp.
+// act: joint::ACT_TANH or ACT_RELU.
 // Every bf16 pointer 16-byte aligned.  Returns the first CUDA error of the
 // launches, or cudaErrorInvalidValue for a layout the tensor maps cannot
 // take.
@@ -350,11 +348,12 @@ extern "C" int rnnt_joint_bwd(const void* enc, const void* pred, const void* w,
                               const void* g_lse, void* h_ws, void* dl_ws, void* denc,
                               void* dpred, void* dw, void* db, int B, int T, int U1,
                               int Hp, int V, int Vp, int blank, int v0, float grad_clamp,
-                              void* stream) {
+                              int act, void* stream) {
   const long long n_rows = (long long)B * T * U1;
   if (n_rows <= 0 || V <= 0 || Hp <= 0) return 0;
   // TMA coordinates and the grids are 32-bit.
-  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || v0 < 0 || !aligned16(enc) ||
+  if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || v0 < 0 ||
+      (act != joint::ACT_TANH && act != joint::ACT_RELU) || !aligned16(enc) ||
       !aligned16(pred) ||
       !aligned16(w) || !aligned16(h_ws) || !aligned16(dl_ws))
     return (int)cudaErrorInvalidValue;
@@ -369,7 +368,8 @@ extern "C" int rnnt_joint_bwd(const void* enc, const void* pred, const void* w,
 
   // 0. h, once.
   h_kernel<<<(unsigned)(B * T), 256, 0, s>>>(static_cast<const bf16*>(enc),
-                                             static_cast<const bf16*>(pred), h, T, U1, Hp);
+                                             static_cast<const bf16*>(pred), h, T, U1, Hp,
+                                             act);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // The tensor maps: h and dl as 2-D (row-major), W, and dl as (B, T, U1, Vp).
@@ -404,7 +404,7 @@ extern "C" int rnnt_joint_bwd(const void* enc, const void* pred, const void* w,
   // 2. dh -> denc, dpred, over (16 t x 8 u) patches.
   DhPass::Params dhp{h, static_cast<float*>(denc), static_cast<float*>(dpred), T, U1, Hp,
                      (Vp + BK - 1) / BK, (T + PT - 1) / PT, (U1 + PU - 1) / PU,
-                     (Hp + DhPass::BN - 1) / DhPass::BN};
+                     (Hp + DhPass::BN - 1) / DhPass::BN, act};
   const long long patches = (long long)B * dhp.n_t * dhp.n_u;
   err = sm90::launch_gemm<DhPass>(map_dl4, map_w, dhp,
                                   dim3((unsigned)(patches * dhp.n_ht)), s);

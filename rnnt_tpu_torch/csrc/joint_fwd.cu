@@ -2,7 +2,8 @@
 //
 // Replaces rnnt_tpu/ops/transducer_pallas.py:65 _fwd_kernel (launcher
 // _fwd_pallas:99, call :114).  For every lattice cell (row) r = (b, t, u):
-//   h_r    = tanh(enc[b, t] + pred[b, u])            (bf16, joint_h.cuh)
+//   h_r    = act(enc[b, t] + pred[b, u])             (bf16, joint_h.cuh;
+//            act = tanh, or ReLU for act = 1)
 //   logits = h_r . W + bias                           (fp32 sums)
 //   lse[b, t, u]   = logsumexp over V of logits
 //   blank[b, t, u] = logits[blank]
@@ -70,8 +71,8 @@ using sm90::bf16;
 
 __global__ void __launch_bounds__(256)
 fwd_h_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ pred,
-             bf16* __restrict__ h, int T, int U1, int Hp) {
-  joint::h_rows(enc, pred, h, T, U1, Hp);
+             bf16* __restrict__ h, int T, int U1, int Hp, int act) {
+  joint::h_rows(enc, pred, h, T, U1, Hp, act);
 }
 
 // ------------------------------- lse pass -------------------------------
@@ -240,17 +241,18 @@ bool aligned(const void* p, uintptr_t bytes) {
 // float32, 8-byte aligned; labels (B, U1) int32; h_ws (B*T*U1, Hp) bf16
 // workspace, 16-byte aligned; lse, blank_out, label_out (B, T, U1)
 // float32.  blank and the labels are global ids; W and bias hold the
-// columns of ids [v0, v0 + V).  Returns the first CUDA error of the two
-// launches, or cudaErrorInvalidValue for a layout or size the kernels do
-// not take.
+// columns of ids [v0, v0 + V).  act: joint::ACT_TANH or ACT_RELU.  Returns
+// the first CUDA error of the two launches, or cudaErrorInvalidValue for a
+// layout, size or activation the kernels do not take.
 extern "C" int rnnt_joint_fwd(const void* enc, const void* pred, const void* w,
                               const void* bias, const void* labels, void* h_ws, void* lse,
                               void* blank_out, void* label_out, int B, int T, int U1,
-                              int Hp, int V, int Vp, int blank, int v0, void* stream) {
+                              int Hp, int V, int Vp, int blank, int v0, int act,
+                              void* stream) {
   const long long n_rows = (long long)B * T * U1;
   if (n_rows <= 0 || V <= 0 || Hp <= 0) return 0;
   if (n_rows >= (1LL << 31) / 8 || Hp % 8 || Vp % 8 || Vp < V || blank < 0 || v0 < 0 ||
-      !aligned(enc, 16) || !aligned(pred, 16) || !aligned(w, 16) || !aligned(h_ws, 16) ||
+      (act != joint::ACT_TANH && act != joint::ACT_RELU) || !aligned(enc, 16) || !aligned(pred, 16) || !aligned(w, 16) || !aligned(h_ws, 16) ||
       !aligned(bias, 8))
     return (int)cudaErrorInvalidValue;
   const int blank_col = blank - v0 >= 0 && blank - v0 < V ? blank - v0 : -1;
@@ -259,7 +261,7 @@ extern "C" int rnnt_joint_fwd(const void* enc, const void* pred, const void* w,
 
   fwd_h_kernel<<<(unsigned)(B * T), 256, 0, s>>>(static_cast<const bf16*>(enc),
                                                  static_cast<const bf16*>(pred), h, T, U1,
-                                                 Hp);
+                                                 Hp, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

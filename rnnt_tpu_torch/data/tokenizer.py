@@ -146,7 +146,11 @@ class UnigramTokenizer:
     @classmethod
     def from_vocab_json(cls, path: str | Path) -> "UnigramTokenizer":
         """Load from the exported id→piece JSON (serving interchange)."""
-        table = json.loads(Path(path).read_text())
+        return cls.from_table(json.loads(Path(path).read_text()))
+
+    @classmethod
+    def from_table(cls, table: dict) -> "UnigramTokenizer":
+        """From an id -> piece table (``vocab_json``'s content)."""
         items = sorted(((int(k), v) for k, v in table.items()))
         pieces = [(p, 0.0, _NORMAL) for _, p in items]
         return cls(pieces)

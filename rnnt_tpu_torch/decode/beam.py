@@ -92,6 +92,14 @@ def merge_duplicate_scores(tokens: torch.Tensor, n: torch.Tensor,
                        torch.where(live, torch.full_like(score, NEG), score))
 
 
+def refuse_joint(joint_spec) -> None:
+    """Beam search scores the tanh joint only (``beam_search_final``, under
+    both entry points, asks)."""
+    if joint_spec.activation != "tanh":
+        raise ValueError(f"joint.activation={joint_spec.activation!r} is not supported "
+                         "by beam search")
+
+
 def beam_decode(predictor, joint, audio: torch.Tensor, t_lens: torch.Tensor,
                 predictor_spec, joint_spec, *, beam_width: int = 8,
                 max_tokens: int = 200, expansions_per_frame: int = 10,
@@ -131,6 +139,7 @@ def beam_search_final(predictor, joint, audio: torch.Tensor, t_lens: torch.Tenso
                       search_norm: bool = True) -> BeamResult:
     """The frame-synchronous search (``_beam_search_final``); returns every
     final lane and the loop's counts."""
+    refuse_joint(joint_spec)
     B, T, _ = audio.shape
     K = beam_width
     W = max(1, min(frames_per_step, T))

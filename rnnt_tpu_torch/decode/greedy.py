@@ -12,8 +12,9 @@ advances time.
   window with valid (unpadded) convs, positions before the history starts
   zeroed after embedding + LayerNorm and after conv1 (the causal conv's
   zero left padding), so the feature equals the full-sequence predictor's.
-  The LSTM predictor's state is its per-layer {"h", "c"}; its feat0 and
-  state0 are one step of blank from the zero state.
+  The LSTM predictor's state is its per-layer {"h", "c"} (the ``rnn``
+  predictor's one {"h", "c"} over its layers); its feat0 and state0 are
+  one step of blank from the zero state.
 * ``tree_map`` / ``tree_where`` map over such a state (nested tuples,
   lists and dicts of tensors): a lane takes the stepped state only where
   it emitted.
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 
 from rnnt_tpu_torch.models.joint import Joint, JointSpec, joint_window
 from rnnt_tpu_torch.models.predictor import (
-    ConvPredictor, ConvPredictorSpec, LSTMPredictorSpec)
+    ConvPredictor, ConvPredictorSpec, LSTMPredictorSpec, RNNPredictorSpec)
 from rnnt_tpu_torch.ops.causal_conv import conv1d_valid
 
 
@@ -87,7 +88,7 @@ def predictor_step(predictor, predictor_spec):
             return conv_window_features(predictor, window, valid), (window, valid)
 
         return step
-    if isinstance(predictor_spec, LSTMPredictorSpec):
+    if isinstance(predictor_spec, (LSTMPredictorSpec, RNNPredictorSpec)):
         def step(state, token):
             feats, new_state = predictor(token[:, None], state)
             return feats[:, 0], new_state

@@ -40,7 +40,7 @@ import torch
 from rnnt_tpu_torch.decode.greedy import (
     decode_init_carry, greedy_decode_incremental, tree_map)
 from rnnt_tpu_torch.models.encoder import encoder_streaming_init_state
-from rnnt_tpu_torch.models.rnnt import RNNT
+from rnnt_tpu_torch.models.rnnt import RNNT, refuse_unsupported
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec, make_featurizer
 
 
@@ -84,6 +84,7 @@ class StreamingSession:
     def __init__(self, model: RNNT, fspec: FeaturizerSpec, *, batch: int = 1,
                  max_tokens_per_chunk: int = 64,
                  max_symbols_per_step: int = 10):
+        refuse_unsupported(model.spec, "streaming decode")
         self.model = model
         self.spec = model.spec
         self.fspec = fspec
@@ -157,6 +158,7 @@ class StreamingSessionPool:
     def __init__(self, model: RNNT, fspec: FeaturizerSpec, *, slots: int = 8,
                  chunk_seconds: float = 0.2, max_tokens_per_chunk: int = 64,
                  max_symbols_per_step: int = 10):
+        refuse_unsupported(model.spec, "the streaming session pool")
         self.model = model
         self.spec = spec = model.spec
         self.fspec = fspec

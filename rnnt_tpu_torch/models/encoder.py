@@ -99,7 +99,10 @@ class EncoderSpec:
 
 
 def encoder_out_len(in_len, spec: EncoderSpec):
-    """Replay the conv length arithmetic; ints or integer tensors."""
+    """Replay the conv length arithmetic; ints or integer tensors.  Another
+    encoder's spec (``models/fastconformer.py``) gives its own ``out_len``."""
+    if not isinstance(spec, EncoderSpec):
+        return spec.out_len(in_len)
     out = in_len
     for cs in spec.conv_specs():
         out = causal_conv_out_len(out, cs)
@@ -180,7 +183,10 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: torch.Generator | None = None,
-                new_state: dict | None = None) -> torch.Tensor:
+                new_state: dict | None = None,
+                lengths: torch.Tensor | None = None) -> torch.Tensor:
+        """``lengths`` (the valid frames) is unused: the causal convolutions
+        need no mask, so padded frames never reach valid ones."""
         x = _gelu(self.prologue["norm"](self.prologue["conv"](x), training,
                                         new_state))
         for block in self.blocks:

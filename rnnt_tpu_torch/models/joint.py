@@ -1,7 +1,8 @@
 """Additive RNN-T joint network.
 
 Port of ``rnnt_tpu/models/joint.py``: optional per-side projections
-(disabled when configured <= 0), broadcast add over the lattice, tanh, a
+(disabled when configured <= 0), broadcast add over the lattice, the
+spec's activation (``tanh``, or ``relu`` as NeMo's RNN-T joint has it), a
 linear layer to ``num_classes``; blank is the last class.  The factored
 ``simple`` heads of the pruned loss (ops/transducer_pruned.py) are
 carried when present.
@@ -32,10 +33,22 @@ class JointSpec:
     text_features: int
     hidden_features: int
     num_classes: int
+    activation: str = "tanh"  # tanh | relu
 
     @property
     def blank_idx(self) -> int:
         return self.num_classes - 1
+
+
+ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
+
+
+def activation_fn(name: str):
+    """The joint activation called ``name``."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"joint.activation must be one of {sorted(ACTIVATIONS)}, "
+                         f"got {name!r}")
+    return ACTIVATIONS[name]
 
 
 class Joint(nn.Module):
@@ -45,6 +58,7 @@ class Joint(nn.Module):
                  simple: bool = False):
         super().__init__()
         self.spec = spec
+        self.act = activation_fn(spec.activation)
         self.out = Linear(spec.hidden_features, spec.num_classes, generator)
         if spec.audio_features > 0:
             self.audio_proj = Linear(spec.audio_features, spec.hidden_features,
@@ -72,14 +86,14 @@ def project_sides(joint: Joint, audio: torch.Tensor, text: torch.Tensor):
 def joint_apply(joint: Joint, audio: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
     """audio (B, T, H) + text (B, U, H) -> logits (B, T, U, V)."""
     audio, text = project_sides(joint, audio, text)
-    return joint.out(torch.tanh(audio[:, :, None, :] + text[:, None, :, :]))
+    return joint.out(joint.act(audio[:, :, None, :] + text[:, None, :, :]))
 
 
 def joint_single(joint: Joint, audio_frame: torch.Tensor,
                  text_frame: torch.Tensor) -> torch.Tensor:
     """One (t, u) per lane: (B, H) + (B, H) -> (B, V)."""
     audio_frame, text_frame = project_sides(joint, audio_frame, text_frame)
-    return joint.out(torch.tanh(audio_frame + text_frame))
+    return joint.out(joint.act(audio_frame + text_frame))
 
 
 def joint_window(joint: Joint, audio_frames: torch.Tensor,
@@ -87,4 +101,4 @@ def joint_window(joint: Joint, audio_frames: torch.Tensor,
     """W audio frames against one text feature per lane:
     (B, W, H) + (B, H) -> (B, W, V)."""
     audio_frames, text_frame = project_sides(joint, audio_frames, text_frame)
-    return joint.out(torch.tanh(audio_frames + text_frame[:, None, :]))
+    return joint.out(joint.act(audio_frames + text_frame[:, None, :]))

@@ -17,6 +17,15 @@ Port of ``rnnt_tpu/models/predictor.py``.
   ``lstm_layer_norm_epsilon``.  In training, dropout at ``lstm_dropout``
   follows every layer, the last included.
 
+* ``RNNPredictor``: NeMo's RNN-T decoder (its ``pred_rnn_layers`` plain
+  LSTM layers): an embedding whose blank row is masked to a zero vector in
+  the forward pass (the blank is the start symbol, and its row gets no
+  gradient whatever was drawn), then ``torch.nn.LSTM``'s layers with both
+  biases (``x2g`` = W_ih and b_ih, ``p2g`` = W_hh and b_hh, gates i, f, g,
+  o), each layer one fused call over the sequence (cuDNN on CUDA); no
+  output layer or norm.  It runs in float32, as the other predictors do.
+  Decoding steps the same calls one position at a time.
+
 On a tensor-parallel mesh (``parallel/mesh.shard_params``) either one's
 ``linear`` holds this rank's columns of the output and runs
 column-parallel (``tp_mesh`` set), the whole output gathered before
@@ -175,11 +184,84 @@ class LSTMPredictor(nn.Module):
                 tuple(new_state))
 
 
+@dataclass(frozen=True)
+class RNNPredictorSpec:
+    num_symbols: int
+    symbol_embedding_dim: int
+    num_lstm_layers: int
+    lstm_hidden_dim: int
+
+    @property
+    def output_dim(self) -> int:
+        return self.lstm_hidden_dim
+
+    @property
+    def blank_idx(self) -> int:
+        return self.num_symbols - 1
+
+
+class RNNLayer(nn.Module):
+    """Parameters ``x2g.w`` (D, 4H), ``x2g.b``, ``p2g.w`` (H, 4H), ``p2g.b``."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.x2g = Linear(input_dim, 4 * hidden_dim, generator)
+        self.p2g = Linear(hidden_dim, 4 * hidden_dim, generator)
+
+
+class RNNPredictor(nn.Module):
+    """tokens (B, U) int [+ state] -> (features (B, U, H), state); the
+    state is {"h", "c"} (B, layers, H), lanes first as decoding keeps them."""
+
+    tp_mesh = None  # never set (no layer of it is sharded); read by mesh.whole_model
+
+    def __init__(self, spec: RNNPredictorSpec, generator: torch.Generator):
+        super().__init__()
+        self.spec = spec
+        H = spec.lstm_hidden_dim
+        self.embedding = nn.Parameter(torch.randn(
+            (spec.num_symbols, spec.symbol_embedding_dim), generator=generator))
+        self.layers = nn.ModuleList(
+            RNNLayer(spec.symbol_embedding_dim if i == 0 else H, H, generator)
+            for i in range(spec.num_lstm_layers))
+
+    def init_state(self, batch: int, device="cpu") -> dict:
+        zeros = lambda: torch.zeros((batch, len(self.layers), self.spec.lstm_hidden_dim),  # noqa: E731
+                                    device=device)
+        return {"h": zeros(), "c": zeros()}
+
+    def forward(self, tokens: torch.Tensor, state: dict | None = None,
+                training: bool = False, generator: torch.Generator | None = None):
+        """``generator`` is unused (no dropout)."""
+        if state is None:
+            state = self.init_state(tokens.shape[0], tokens.device)
+        tokens = tokens.long()
+        x = self.embedding[tokens] * (tokens != self.spec.blank_idx)[..., None]
+        # One cuDNN call a layer, its weights views of one buffer in cuDNN's
+        # layout (W_ih (4H, D), W_hh (4H, H), b_ih, b_hh back to back), so
+        # that cuDNN takes them as they are instead of compacting separate
+        # tensors at every call (a stack of several layers lays its buffer
+        # out otherwise).
+        hs, cs = [], []
+        for i, layer in enumerate(self.layers):
+            parts = (layer.x2g.w.t(), layer.p2g.w.t(), layer.x2g.b, layer.p2g.b)
+            flat = torch.cat([t.reshape(-1) for t in parts])
+            weights = [w.view(t.shape)
+                       for w, t in zip(flat.split([t.numel() for t in parts]), parts)]
+            hx = tuple(state[k][None, :, i].contiguous() for k in ("h", "c"))
+            x, h, c = torch.lstm(x, hx, weights, True, 1, 0.0, training, False, True)
+            hs.append(h[0])
+            cs.append(c[0])
+        return x, {"h": torch.stack(hs, 1), "c": torch.stack(cs, 1)}
+
+
 def make_predictor(spec, generator: torch.Generator) -> nn.Module:
     if isinstance(spec, ConvPredictorSpec):
         return ConvPredictor(spec, generator)
     if isinstance(spec, LSTMPredictorSpec):
         return LSTMPredictor(spec, generator)
+    if isinstance(spec, RNNPredictorSpec):
+        return RNNPredictor(spec, generator)
     raise TypeError(f"unknown predictor spec: {type(spec)}")
 
 
@@ -188,6 +270,6 @@ def predictor_apply(predictor: nn.Module, tokens: torch.Tensor,
                     generator: torch.Generator | None = None) -> torch.Tensor:
     """Full-sequence features (B, U, output_dim) of either predictor from
     its zero state (``rnnt_tpu/models/predictor.py:246-254``)."""
-    if isinstance(predictor, LSTMPredictor):
+    if isinstance(predictor, (LSTMPredictor, RNNPredictor)):
         return predictor(tokens, None, training, generator)[0]
     return predictor(tokens, training, generator)

@@ -6,6 +6,11 @@ on blank-prepended targets and the encoder on features, in eval or in
 training mode (dropout from an explicit generator, batch statistics), and
 returns the new batch-norm state as the JAX ``rnnt_forward`` does; the two
 run in ``predictor`` and ``encoder`` spans (``train/profiling.py``).
+
+The encoder is the spec's kind: the Jasper encoder (``EncoderSpec``) or the
+FastConformer (``models/fastconformer.py``, ``FastConformerSpec``), which
+takes the feature frames' counts for its attention mask.
+``refuse_unsupported`` names the keys of a model that a path does not run.
 """
 
 from __future__ import annotations
@@ -17,10 +22,12 @@ import torch
 from torch import nn
 
 from rnnt_tpu_torch.models.encoder import Encoder, EncoderSpec
+from rnnt_tpu_torch.models.fastconformer import FastConformer, FastConformerSpec
 from rnnt_tpu_torch.models.joint import Joint, JointSpec
 from rnnt_tpu_torch.models.predictor import (
     ConvPredictorSpec,
     LSTMPredictorSpec,
+    RNNPredictorSpec,
     make_predictor,
     predictor_apply,
 )
@@ -30,8 +37,8 @@ from rnnt_tpu_torch.train.profiling import span
 
 @dataclass(frozen=True)
 class RNNTSpec:
-    encoder: EncoderSpec
-    predictor: Union[ConvPredictorSpec, LSTMPredictorSpec]
+    encoder: Union[EncoderSpec, FastConformerSpec]
+    predictor: Union[ConvPredictorSpec, LSTMPredictorSpec, RNNPredictorSpec]
     joint: JointSpec
     loss_chunk_size: int = 16
     loss_impl: str = "auto"  # auto | chunked | pallas | pruned
@@ -59,7 +66,7 @@ class RNNT(nn.Module):
                  simple: bool | None = None):
         super().__init__()
         self.spec = spec
-        self.encoder = Encoder(spec.encoder, generator)
+        self.encoder = make_encoder(spec.encoder, generator)
         self.predictor = make_predictor(spec.predictor, generator)
         if simple is None:
             simple = spec.loss_impl == "pruned"
@@ -79,6 +86,24 @@ class RNNT(nn.Module):
         buffers = dict(self.named_buffers())
         for k, v in new_state.items():
             buffers[k].copy_(v)
+
+
+def make_encoder(spec, generator: torch.Generator) -> nn.Module:
+    if isinstance(spec, FastConformerSpec):
+        return FastConformer(spec, generator)
+    return Encoder(spec, generator)
+
+
+def refuse_unsupported(spec: RNNTSpec, path: str) -> None:
+    """Raise, naming the config key, when ``spec`` uses what ``path`` (a
+    few words naming the path) does not run: the FastConformer encoder or
+    a ReLU joint, which only training, the exact losses and greedy eval
+    take."""
+    if isinstance(spec.encoder, FastConformerSpec):
+        raise ValueError(f"encoder.kind='fastconformer' is not supported by {path}")
+    if spec.joint.activation != "tanh":
+        raise ValueError(f"joint.activation={spec.joint.activation!r} is not supported "
+                         f"by {path}")
 
 
 def rnnt_init(spec: RNNTSpec, seed: int = 0, device="cpu") -> RNNT:
@@ -105,16 +130,18 @@ def prepend_blank(targets: torch.Tensor, blank_idx: int) -> torch.Tensor:
 
 def rnnt_forward(model: RNNT, features: torch.Tensor, targets: torch.Tensor,
                  *, training: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 feat_lens: torch.Tensor | None = None):
     """Encoder + predictor.  Returns (audio (B, T', H), text (B, U+1, H),
     new_state): the batch-norm running statistics after this forward (the
     current ones outside training).  A generator of None turns dropout off,
-    as ``rng=None`` does in JAX."""
+    as ``rng=None`` does in JAX.  ``feat_lens`` are the valid feature
+    frames, which the FastConformer masks its attention by."""
     with span("predictor"):
         text = predictor_apply(model.predictor,
                                prepend_blank(targets, model.spec.blank_idx),
                                training, generator)
     new_state: dict = {}
     with span("encoder"):
-        audio = model.encoder(features, training, generator, new_state)
+        audio = model.encoder(features, training, generator, new_state, lengths=feat_lens)
     return audio, text, {**model.norm_state(), **new_state}

@@ -12,6 +12,17 @@ streamed frames are the full utterance's frames.
 On a CUDA card the float32 conv goes through cuDNN, which runs TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is False; a card-side comparison with
 the JAX package sets it False.
+
+``log_mode="nemo"`` is NeMo's ``AudioToMelSpectrogramPreprocessor`` as
+parakeet-rnnt-0.6b uses it (no dither): pre-emphasis ``y[n] = x[n] -
+0.97 x[n-1]`` with samples at or past the row's length zeroed, a
+symmetric Hann window of ``win_length`` centred in ``n_fft``, a centred
+STFT with zero padding, the power, a Slaney-scale, Slaney-normalised mel
+filterbank over 0 Hz to half the sample rate (librosa's ``htk=False,
+norm="slaney"``), ``log(x + 2**-24)``, and per feature the mean over the
+row's valid frames (``samples // hop + 1``) subtracted and (unbiased std
++ 1e-5) divided out; frames past the valid ones are 0.  Its featurizer
+takes each row's sample count; the others ignore it.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ _INT16_GAIN = float(np.iinfo(np.int16).max) ** 2
 
 @dataclass(frozen=True)
 class FeaturizerSpec:
-    """Static featurizer description; ``log_mode`` is ``"piecewise"``,
+    """Static featurizer description; ``log_mode`` is ``"nemo"``, ``"piecewise"``,
     ``"old_piecewise"`` or ``"log"``."""
 
     n_fft: int = 400
@@ -109,6 +120,78 @@ def _mel_filterbank(spec: FeaturizerSpec) -> np.ndarray:
     return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
 
 
+NEMO_PREEMPH = 0.97
+NEMO_LOG_GUARD = 2.0 ** -24
+NEMO_STD_EPS = 1e-5
+
+
+def slaney_mel_filterbank(n_fft: int, num_mels: int, sample_rate: int) -> np.ndarray:
+    """(n_fft // 2 + 1, num_mels) float32: triangles evenly spaced on the
+    Slaney mel scale (linear below 1 kHz, logarithmic above) from 0 Hz to
+    half the sample rate, each scaled to unit area (2 / its width in Hz)."""
+    f_sp, min_log_hz = 200.0 / 3.0, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, math.log(6.4) / 27.0
+
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        return np.where(f >= min_log_hz,
+                        min_log_mel + np.log(np.maximum(f, min_log_hz) / min_log_hz) / logstep,
+                        f / f_sp)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                        f_sp * m)
+
+    freqs = np.linspace(0.0, sample_rate / 2.0, n_fft // 2 + 1)
+    mel_f = mel_to_hz(np.linspace(hz_to_mel(0.0), hz_to_mel(sample_rate / 2.0), num_mels + 2))
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_f[2:] - mel_f[:-2]))[:, None]
+    return weights.T.astype(np.float32)
+
+
+def _nemo_featurizer(spec: FeaturizerSpec):
+    fb_np = slaney_mel_filterbank(spec.n_fft, spec.num_mels, spec.sample_rate)
+    consts: dict = {}
+
+    def on(device):
+        if device not in consts:
+            consts[device] = (torch.from_numpy(fb_np).to(device),
+                              torch.hann_window(spec.win_length, periodic=False,
+                                                device=device))
+        return consts[device]
+
+    def featurize(waveform: torch.Tensor, lengths: torch.Tensor | None = None):
+        squeeze = waveform.dim() == 1
+        x = waveform.float()[None] if squeeze else waveform.float()
+        B, L = x.shape
+        fb, window = on(x.device)
+        if lengths is None:
+            lengths = torch.full((B,), L, dtype=torch.long, device=x.device)
+        lengths = lengths.to(x.device).long()
+        keep = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
+        x = torch.cat([x[:, :1], x[:, 1:] - NEMO_PREEMPH * x[:, :-1]], dim=1)
+        x = torch.where(keep, x, torch.zeros((), device=x.device))
+        stft = torch.stft(x, spec.n_fft, hop_length=spec.hop_length,
+                          win_length=spec.win_length, window=window, center=True,
+                          pad_mode="constant", return_complex=True)
+        power = (stft.real ** 2 + stft.imag ** 2).transpose(1, 2)   # (B, frames, bins)
+        feats = torch.log(torch.matmul(power, fb) + NEMO_LOG_GUARD)
+        valid = (torch.arange(feats.shape[1], device=x.device)[None, :]
+                 < (lengths // spec.hop_length + 1)[:, None])[:, :, None]
+        n = valid.sum(dim=1, keepdim=True).float()
+        mean = torch.where(valid, feats, 0.0).sum(dim=1, keepdim=True) / n
+        var = torch.where(valid, (feats - mean) ** 2, 0.0).sum(dim=1, keepdim=True) / (n - 1)
+        feats = torch.where(valid, (feats - mean) / (torch.sqrt(var) + NEMO_STD_EPS), 0.0)
+        return feats[0] if squeeze else feats
+
+    return featurize
+
+
 def piecewise_linear_log(x: torch.Tensor, x_cutoff: float = 10e-3,
                          slope: float = 50.0) -> torch.Tensor:
     """Log above the cutoff, the continuing line below it."""
@@ -125,8 +208,11 @@ def old_piecewise_linear_log(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_featurizer(spec: FeaturizerSpec):
-    """``featurize(waveform (B, L) or (L,)) -> (B, frames, bins)`` float32,
-    on the waveform's device."""
+    """``featurize(waveform (B, L) or (L,), lengths=None) -> (B, frames,
+    bins)`` float32, on the waveform's device; ``lengths`` (B,) samples are
+    read by the ``nemo`` featurizer alone (all samples valid when None)."""
+    if spec.log_mode == "nemo":
+        return _nemo_featurizer(spec)
     if spec.log_mode not in ("piecewise", "old_piecewise", "log"):
         raise ValueError(f"unknown log_mode: {spec.log_mode}")
     basis_np = _dft_basis(spec).T[:, None, :].copy()  # (2*bins, 1, n_fft)
@@ -143,7 +229,7 @@ def make_featurizer(spec: FeaturizerSpec):
                 torch.tensor(spec.invstddev, dtype=torch.float32, device=device))
         return consts[device]
 
-    def featurize(waveform: torch.Tensor) -> torch.Tensor:
+    def featurize(waveform: torch.Tensor, lengths=None) -> torch.Tensor:
         squeeze = waveform.dim() == 1
         x = waveform.float()[None] if squeeze else waveform.float()
         basis, mel_fb, mean, invstd = on(x.device)

@@ -167,20 +167,21 @@ def transducer_loss_from_logits(logits, targets, t_lens, u_lens, blank: int,
                          reduction)
 
 
-def chunk_logits(enc_chunk, w, b, text, grad_clamp: float) -> torch.Tensor:
-    """(B, Tc, U+1, V) f32 logits of a chunk of frames: h = tanh(enc +
-    pred) in the inputs' dtype, h W with W in that dtype, summed in f32;
-    with grad_clamp > 0 their cotangent is clamped in backward."""
-    h = torch.tanh(enc_chunk[:, :, None, :] + text[:, None, :, :])
+def chunk_logits(enc_chunk, w, b, text, grad_clamp: float, act=torch.tanh) -> torch.Tensor:
+    """(B, Tc, U+1, V) f32 logits of a chunk of frames: h = act(enc +
+    pred) in the inputs' dtype (tanh, or the joint's activation), h W with
+    W in that dtype, summed in f32; with grad_clamp > 0 their cotangent is
+    clamped in backward."""
+    h = act(enc_chunk[:, :, None, :] + text[:, None, :, :])
     logits = torch.matmul(h.float(), w.to(h.dtype).float()) + b.float()
     return clamp_grads(logits, grad_clamp) if grad_clamp > 0 else logits
 
 
 def _joint_chunk_log_probs(enc_chunk, w, b, text, tgt, u_mask, blank: int,
-                           grad_clamp: float):
+                           grad_clamp: float, act=torch.tanh):
     """Joint + log-softmax + blank/label gather for a chunk of frames:
     (B, Tc, U+1) f32 blank and label log-probs."""
-    logits = chunk_logits(enc_chunk, w, b, text, grad_clamp)
+    logits = chunk_logits(enc_chunk, w, b, text, grad_clamp, act)
     denom = torch.logsumexp(logits, dim=-1)
     B, Tc, U1, _ = logits.shape
     label = torch.gather(logits, 3,
@@ -233,7 +234,7 @@ def joint_lattice_log_probs(joint, audio: torch.Tensor, text: torch.Tensor,
     tgt = torch.cat([targets, targets.new_zeros((B, 1))], dim=1).long()
     u_mask = torch.arange(U1, device=audio.device)[None, :] < u_lens[:, None]
     return run_chunks(_joint_chunk_log_probs, audio, chunk_size, joint.out.w, joint.out.b,
-                      text, tgt, u_mask, blank, grad_clamp)
+                      text, tgt, u_mask, blank, grad_clamp, joint.act)
 
 
 def reduce_losses(losses: torch.Tensor, reduction: str) -> torch.Tensor:

@@ -6,7 +6,9 @@ Replaces ``rnnt_tpu/ops/transducer_pallas.py:65`` ``_fwd_kernel``
 reference's name so the two packages line up file by file; the kernel is
 CUDA C++ in ``csrc/joint_fwd.cu``.
 
-For each lattice cell the kernel forms ``tanh(enc_t + pred_u)`` and the
+For each lattice cell the kernel forms ``act(enc_t + pred_u)`` (``act`` is
+tanh, or ReLU for a joint whose ``activation`` is ``relu``; a launch
+argument, ``ACT_CODES``) and the
 V-wide logits on chip only and writes three (B, T, U+1) float32 arrays:
 the logsumexp over V, the blank logit and the label logit.  It reads int32
 label ids and the blank index in place of the TPU kernel's one-hot
@@ -57,12 +59,27 @@ from rnnt_tpu_torch.ops.transducer import NEG, lattice_nll, reduce_losses
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 K1 = CudaKernel(
-    "joint_fwd", "rnnt_joint_fwd", [_P] * 9 + [_I] * 8 + [_P],
+    "joint_fwd", "rnnt_joint_fwd", [_P] * 9 + [_I] * 9 + [_P],
     replaces="rnnt_tpu/ops/transducer_pallas.py:65 _fwd_kernel")
 K2 = CudaKernel(
     "joint_bwd", "rnnt_joint_bwd",
-    [_P] * 15 + [_I] * 8 + [ctypes.c_float, _P],
+    [_P] * 15 + [_I] * 8 + [ctypes.c_float, _I, _P],
     replaces="rnnt_tpu/ops/transducer_pallas.py:155 _bwd_kernel")
+
+
+# The joint activations K1 and K2 take, by their launch argument's value.
+ACT_CODES = {"tanh": 0, "relu": 1}
+
+
+def _act_code(act: str) -> int:
+    if act not in ACT_CODES:
+        raise ValueError(f"K1 and K2 take the joint activations {sorted(ACT_CODES)}, "
+                         f"got {act!r}")
+    return ACT_CODES[act]
+
+
+def _activate(x: torch.Tensor, act: str) -> torch.Tensor:
+    return torch.tanh(x) if _act_code(act) == 0 else torch.relu(x)
 
 
 def _slice_ids(labels, blank: int, v0: int, V: int):
@@ -73,13 +90,14 @@ def _slice_ids(labels, blank: int, v0: int, V: int):
     return local.clamp(0, V - 1), own, (blank - v0 if 0 <= blank - v0 < V else None)
 
 
-def fused_joint_outputs_plain(enc, pred, w, b, labels, blank: int, v0: int = 0):
+def fused_joint_outputs_plain(enc, pred, w, b, labels, blank: int, v0: int = 0, *,
+                              act: str = "tanh"):
     """(lse, blank_logit, label_logit), each (B, T, U1) float32, in plain
-    PyTorch.  enc (B, T, H), pred (B, U1, H) and w (H, V) share one dtype;
+    PyTorch, over h = act(enc + pred) (``act`` tanh or relu).  enc (B, T, H), pred (B, U1, H) and w (H, V) share one dtype;
     b (V,) float32; labels (B, U1) int ids of the label leaving each column.
     w and b hold the columns of ids [v0, v0 + V): lse is over them, and a
     blank or label id outside them gives a 0 logit."""
-    h = torch.tanh(enc[:, :, None, :] + pred[:, None, :, :])
+    h = _activate(enc[:, :, None, :] + pred[:, None, :, :], act)
     logits = torch.matmul(h.float(), w.float()) + b.float()
     B, T, U1, V = logits.shape
     local, own, blank_col = _slice_ids(labels, blank, v0, V)
@@ -118,14 +136,15 @@ def _check_joint(enc, pred, w, b, labels, blank: int, v0: int):
 MAX_ROWS = (1 << 31) // 8
 
 
-def fused_joint_forward(enc, pred, w, b, labels, blank: int, v0: int = 0):
+def fused_joint_forward(enc, pred, w, b, labels, blank: int, v0: int = 0, *,
+                        act: str = "tanh"):
     """Same contract as ``fused_joint_outputs_plain``; on CUDA, enc, pred
     and w must be bf16 and every input contiguous."""
     if enc.device.type == "cpu":
-        return fused_joint_outputs_plain(enc, pred, w, b, labels, blank, v0)
+        return fused_joint_outputs_plain(enc, pred, w, b, labels, blank, v0, act=act)
     if enc.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or the CPU, got {enc.device}")
-    return _joint_forward_kernel(enc, pred, w, b, labels, blank, v0)
+    return _joint_forward_kernel(enc, pred, w, b, labels, blank, v0, act)
 
 
 # Rows of the lattice per step of the plain backward: bounds its (rows, V)
@@ -134,14 +153,15 @@ _PLAIN_BWD_CELLS = 1 << 24
 
 
 def fused_joint_bwd_plain(enc, pred, w, b, labels, blank: int, lse, g_blank,
-                          g_label, g_lse, grad_clamp: float = -1.0, v0: int = 0):
+                          g_label, g_lse, grad_clamp: float = -1.0, v0: int = 0, *,
+                          act: str = "tanh"):
     """(denc (B,T,H), dpred (B,U1,H), dW (H,V), db (V,)), all float32: the
     K2 formula in plain PyTorch, a few frames at a time.  Per cell,
     dl = g_lse * softmax + g_blank * 1[blank] + g_label * 1[label] (clamped
     to +-grad_clamp when it is > 0) from the logits recomputed against the
     saved lse; dh = dl . W^T and dW = h^T . dl take dl in W's dtype, db sums
-    it in float32; dpre = dh (1 - h^2) sums over u into denc and over t into
-    dpred.  On a vocabulary slice (w and b the columns of ids [v0, v0 + V),
+    it in float32; dpre = dh act'(h) (1 - h^2 for tanh, [h > 0] for relu)
+    sums over u into denc and over t into dpred.  On a vocabulary slice (w and b the columns of ids [v0, v0 + V),
     lse the merged one) the indicator of an id outside the slice is 0."""
     B, T, H = enc.shape
     U1 = pred.shape[1]
@@ -156,7 +176,7 @@ def fused_joint_bwd_plain(enc, pred, w, b, labels, blank: int, lse, g_blank,
     step = max(1, _PLAIN_BWD_CELLS // max(1, B * U1 * V))
     for t0 in range(0, T, step):
         t1 = min(T, t0 + step)
-        h = torch.tanh(enc[:, t0:t1, None, :] + pred[:, None, :, :])
+        h = _activate(enc[:, t0:t1, None, :] + pred[:, None, :, :], act)
         hf = h.float()
         dl = torch.exp(torch.matmul(hf, wf) + bf - lse[:, t0:t1, :, None])
         dl = dl * g_lse[:, t0:t1, :, None]
@@ -169,7 +189,8 @@ def fused_joint_bwd_plain(enc, pred, w, b, labels, blank: int, lse, g_blank,
             dl = dl.clamp(-grad_clamp, grad_clamp)
         db += dl.sum(dim=(0, 1, 2))
         dlw = dl.to(w.dtype).float()
-        dpre = torch.matmul(dlw, wf.T) * (1.0 - hf * hf)
+        dpre = torch.matmul(dlw, wf.T) * ((1.0 - hf * hf) if act == "tanh"
+                                           else (hf > 0).float())
         denc[:, t0:t1] = dpre.sum(dim=2)
         dpred += dpre.sum(dim=1)
         dw += torch.matmul(hf.reshape(-1, H).T, dlw.reshape(-1, V))
@@ -177,17 +198,18 @@ def fused_joint_bwd_plain(enc, pred, w, b, labels, blank: int, lse, g_blank,
 
 
 def fused_joint_backward(enc, pred, w, b, labels, blank: int, lse, g_blank,
-                         g_label, g_lse, grad_clamp: float = -1.0, v0: int = 0):
+                         g_label, g_lse, grad_clamp: float = -1.0, v0: int = 0, *,
+                         act: str = "tanh"):
     """Same contract as ``fused_joint_bwd_plain``; on CUDA every input as
     ``fused_joint_forward`` takes it, plus lse and the cotangents (B, T, U1)
     float32 contiguous."""
     if enc.device.type == "cpu":
         return fused_joint_bwd_plain(enc, pred, w, b, labels, blank, lse,
-                                     g_blank, g_label, g_lse, grad_clamp, v0)
+                                     g_blank, g_label, g_lse, grad_clamp, v0, act=act)
     if enc.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA or the CPU, got {enc.device}")
     return _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank,
-                                  g_label, g_lse, grad_clamp, v0)
+                                  g_label, g_lse, grad_clamp, v0, act)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -218,27 +240,29 @@ def _check_rows(name: str, B: int, T: int, U1: int) -> None:
                          f"fewer than {MAX_ROWS} (32-bit row indices)")
 
 
-def _joint_forward_kernel(enc, pred, w, b, labels, blank, v0=0):
+def _joint_forward_kernel(enc, pred, w, b, labels, blank, v0=0, act="tanh"):
     """K1's launch on enc, pred and W padded as ``_padded_operands`` pads
     them, with h (N, Hp), N = B*T*U1, a bf16 workspace; the bias is read
     only below V."""
     B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank, v0)
+    code = _act_code(act)
     _check_rows("K1", B, T, U1)
     dev = enc.device
     enc, pred, w, Hp, Vp = _padded_operands(enc, pred, w)
     h_ws = torch.empty((B * T * U1, Hp), dtype=torch.bfloat16, device=dev)
     outs = [torch.empty((B, T, U1), dtype=torch.float32, device=dev) for _ in range(3)]
     K1.launch(enc, pred, w, _aligned(b), labels, h_ws, *outs, B, T, U1, Hp, V, Vp, blank,
-              v0)
+              v0, code)
     return tuple(outs)
 
 
 def _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank, g_label,
-                           g_lse, grad_clamp, v0=0):
+                           g_lse, grad_clamp, v0=0, act="tanh"):
     """K2's launch on enc, pred and W padded as ``_padded_operands`` pads
     them; the outputs are cropped back.  h (N, Hp) and dl (N, Vp),
     N = B*T*U1, are bf16 workspaces."""
     B, T, U1, H, V = _check_joint(enc, pred, w, b, labels, blank, v0)
+    code = _act_code(act)
     _check_rows("K2", B, T, U1)
     dev = enc.device
     for name, x in (("lse", lse), ("g_blank", g_blank), ("g_label", g_label),
@@ -252,7 +276,7 @@ def _joint_backward_kernel(enc, pred, w, b, labels, blank, lse, g_blank, g_label
     dw = torch.zeros((Hp, Vp), dtype=torch.float32, device=dev)
     db = torch.zeros((V,), dtype=torch.float32, device=dev)
     K2.launch(enc, pred, w, b, labels, lse, g_blank, g_label, g_lse, h_ws, dl_ws,
-              denc, dpred, dw, db, B, T, U1, Hp, V, Vp, blank, v0, float(grad_clamp))
+              denc, dpred, dw, db, B, T, U1, Hp, V, Vp, blank, v0, float(grad_clamp), code)
     if Hp != H or Vp != V:
         denc, dpred, dw = (x.contiguous() for x in (denc[..., :H], dpred[..., :H],
                                                      dw[:H, :V]))
@@ -265,11 +289,11 @@ class FusedJointOutputs(torch.autograd.Function):
     ``_fjo_bwd`` returns it)."""
 
     @staticmethod
-    def forward(ctx, enc, pred, w, b, labels, blank, grad_clamp):
+    def forward(ctx, enc, pred, w, b, labels, blank, grad_clamp, act="tanh"):
         check_blank(blank, w.shape[1])
         lse, blank_logit, label_logit = fused_joint_forward(
-            enc, pred, w, b, labels, blank)
-        ctx.blank, ctx.grad_clamp = blank, grad_clamp
+            enc, pred, w, b, labels, blank, act=act)
+        ctx.blank, ctx.grad_clamp, ctx.act = blank, grad_clamp, act
         ctx.save_for_backward(enc, pred, w, b, labels, lse)
         return lse, blank_logit, label_logit
 
@@ -279,23 +303,24 @@ class FusedJointOutputs(torch.autograd.Function):
         gs = [torch.zeros_like(lse) if g is None else g.float().contiguous()
               for g in (g_blank, g_label, g_lse)]
         denc, dpred, dw, db = fused_joint_backward(
-            enc, pred, w, b, labels, ctx.blank, lse, *gs, ctx.grad_clamp)
+            enc, pred, w, b, labels, ctx.blank, lse, *gs, ctx.grad_clamp, act=ctx.act)
         return (denc.to(enc.dtype), dpred.to(pred.dtype), dw.to(w.dtype),
-                db.to(b.dtype), None, None, None)
+                db.to(b.dtype), None, None, None, None)
 
 
 def fused_joint_outputs(enc, pred, w, b, labels, blank: int,
-                        grad_clamp: float = -1.0, mesh=None):
+                        grad_clamp: float = -1.0, mesh=None, act: str = "tanh"):
     """(lse, blank_logit, label_logit), each (B, T, U1) float32 over the
     lattice of enc (B, T, H) and pred (B, U1, H), differentiable in enc,
     pred, w and b.  grad_clamp > 0 bounds d(loss)/d(logits) in backward.
     With a ``mesh``, w and b are this model rank's slice of V and the
-    outputs are merged over the slices (``parallel/partition.py``)."""
+    outputs are merged over the slices (``parallel/partition.py``, tanh
+    only)."""
     if mesh is not None:
         from rnnt_tpu_torch.parallel.partition import fused_joint_outputs_tp
 
         return fused_joint_outputs_tp(enc, pred, w, b, labels, blank, grad_clamp, mesh)
-    return FusedJointOutputs.apply(enc, pred, w, b, labels, blank, grad_clamp)
+    return FusedJointOutputs.apply(enc, pred, w, b, labels, blank, grad_clamp, act)
 
 
 def transducer_loss_pallas(joint, audio, text, targets, t_lens, u_lens,
@@ -319,7 +344,7 @@ def transducer_loss_pallas(joint, audio, text, targets, t_lens, u_lens,
         audio.contiguous(), text.to(audio.dtype).contiguous(),
         joint.out.w.to(audio.dtype).contiguous(),
         joint.out.b.float().contiguous(), labels.to(torch.int32).contiguous(),
-        blank, grad_clamp, mesh=joint.tp_mesh)
+        blank, grad_clamp, mesh=joint.tp_mesh, act=joint.spec.activation)
     lp_blank = blank_logit - lse
     u_mask = torch.arange(U1, device=audio.device)[None, :] < u_lens[:, None]
     lp_label = torch.where(u_mask[:, None, :], label_logit - lse,

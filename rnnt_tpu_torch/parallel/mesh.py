@@ -208,6 +208,10 @@ def shard_params(model, mesh: Mesh) -> dict[str, int]:
     shards in place, by the TP rules; mark the submodules that run sharded
     (``tp_mesh``) and keep the layout on the model (``tp_layout``).
     Returns the layout, {} on a model axis of 1 (nothing changes)."""
+    if mesh.model > 1 and hasattr(model, "spec"):  # a whole model, not a part's holder
+        from rnnt_tpu_torch.models.rnnt import refuse_unsupported
+
+        refuse_unsupported(model.spec, "a tensor-parallel mesh")
     params = dict(model.named_parameters())
     dims = {n: sharded_dim(n.split("."), tuple(p.shape), mesh.model) for n, p in params.items()}
     layout = {n: d for n, d in dims.items() if d is not None}

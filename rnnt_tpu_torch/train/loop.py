@@ -27,7 +27,10 @@ Port of ``rnnt_tpu/train/loop.py``:
   record in ``metrics.jsonl`` also holds ``launches/<kernel>``, the
   hand-written kernels' launches in that step on rank 0 (0 on the CPU,
   where their plain versions run), ``conv_folds``, the dilated convs
-  that step ran by phases (``ops/causal_conv.py`` ``FOLDS``), and on more
+  that step ran by phases (``ops/causal_conv.py`` ``FOLDS``), for a
+  FastConformer ``attn_calls/<backend>``, the attention cores that step
+  ran on that SDPA backend (``models/fastconformer.py`` ``ATTN_CALLS``,
+  ``ATTN_BACKEND``), and on more
   than one rank
   ``launches_by_rank/<kernel>`` and
   ``total_norm_by_rank/train``, every rank's; an eval's record holds
@@ -95,11 +98,13 @@ from rnnt_tpu_torch.data.dataset import (
     concatenate_rows,
     librispeech_dataset,
     synthetic_dataset,
+    synthetic_piece_table,
 )
 from rnnt_tpu_torch.data.device_cache import DeviceSampleCache, gather_rows
 from rnnt_tpu_torch.data.pipeline import PrefetchIterator
 from rnnt_tpu_torch.data.tokenizer import UnigramTokenizer
 from rnnt_tpu_torch.decode.greedy import greedy_decode
+from rnnt_tpu_torch.models import fastconformer
 from rnnt_tpu_torch.models.rnnt import RNNT, rnnt_init
 from rnnt_tpu_torch.ops import causal_conv
 from rnnt_tpu_torch.ops.kernels import launch_counts
@@ -131,7 +136,11 @@ def _load_tokenizer(cfg: Config) -> UnigramTokenizer:
         return UnigramTokenizer.from_file(cfg.tokenizer.spm_model)
     if cfg.tokenizer.vocab_json:
         return UnigramTokenizer.from_vocab_json(cfg.tokenizer.vocab_json)
-    raise ValueError("config.tokenizer needs spm_model or vocab_json")
+    if cfg.data.dataset == "synthetic":
+        # The synthetic corpus's own pieces, padded to the text vocabulary.
+        return UnigramTokenizer.from_table(synthetic_piece_table(cfg.num_text_tokens))
+    raise ValueError("config.tokenizer needs spm_model or vocab_json (a synthetic "
+                     "corpus uses its own pieces when neither is set)")
 
 
 def _load_datasets(cfg: Config):
@@ -457,7 +466,7 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
 
     logger = MetricsLogger(output_dir) if is_main else None
     last_wer = float("nan")
-    pending: list = []  # (step, metrics of 0-d tensors, kernel launches, conv folds)
+    pending: list = []  # (step, metrics, kernel launches, (conv folds, attention cores))
     t_log = time.time()
     audio_secs = 0.0
 
@@ -489,7 +498,9 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
             scalars.update({f"total_norm/{k.split('/', 1)[1]}": float(v)
                             for k, v in m.items() if k.startswith("grad_norm/")})
             scalars.update({f"launches/{k}": n for k, n in launched.items()})
-            scalars["conv_folds"] = folds
+            scalars["conv_folds"], attn = folds
+            if attn:
+                scalars[f"attn_calls/{fastconformer.ATTN_BACKEND}"] = attn
             if mesh.world > 1:
                 scalars.update({f"launches_by_rank/{k}": [r[i][k] for r in by_rank]
                                 for k in launched})
@@ -627,10 +638,11 @@ def train(cfg: Config, *, output_base: str | Path = "experiments",
                     break
                 batch, seconds = item
                 fn = warm_fn if warm_fn is not None and state.step < warmup_until else step_fn
-                before, folds = launch_counts(), causal_conv.FOLDS
+                before = launch_counts()
+                folds, attn = causal_conv.FOLDS, fastconformer.ATTN_CALLS
                 state, metrics = fn(state, batch, step_generator(dev, tc.seed, state.step))
                 launched = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
-                folds = causal_conv.FOLDS - folds
+                folds = (causal_conv.FOLDS - folds, fastconformer.ATTN_CALLS - attn)
                 with span("bookkeeping"):
                     audio_secs += seconds
                     pending.append((state.step, metrics, launched, folds))

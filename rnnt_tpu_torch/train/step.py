@@ -56,7 +56,8 @@ import torch
 from rnnt_tpu_torch.data import augment, augment_device
 from rnnt_tpu_torch.data.dataset import MULAW_PRESCALE, WIRE_SCALE
 from rnnt_tpu_torch.models.encoder import encoder_out_len
-from rnnt_tpu_torch.models.rnnt import RNNT, RNNTSpec, resolve_loss_impl, rnnt_forward
+from rnnt_tpu_torch.models.rnnt import (
+    RNNT, RNNTSpec, refuse_unsupported, resolve_loss_impl, rnnt_forward)
 from rnnt_tpu_torch.ops.norm import batch_stats_over
 from rnnt_tpu_torch.ops.stft import FeaturizerSpec, make_featurizer
 from rnnt_tpu_torch.ops.transducer import transducer_loss
@@ -115,9 +116,10 @@ def make_eval_forward(spec: RNNTSpec, fspec: FeaturizerSpec,
     dtype = compute_dtype(precision)
 
     def forward(model: RNNT, batch: dict):
-        feats = featurize(decode_wire_audio(batch["audio"])).to(dtype)
+        feats = featurize(decode_wire_audio(batch["audio"]), batch["audio_lens"]).to(dtype)
         feat_lens = feature_lens_from_samples(batch["audio_lens"], fspec)
-        return model.encoder(feats), encoder_out_len(feat_lens, spec.encoder)
+        return (model.encoder(feats, lengths=feat_lens),
+                encoder_out_len(feat_lens, spec.encoder))
 
     return forward
 
@@ -137,6 +139,8 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
     chunked joint of ``parallel/partition.py`` for ``chunked``."""
     if spec.loss_impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss_impl {spec.loss_impl!r}")
+    if spec.loss_impl in ("pruned", "pruned_warmup"):
+        refuse_unsupported(spec, f"training.loss_impl={spec.loss_impl!r}")
     if spec.loss_impl == "pruned" and spec.lattice_shard_t:
         raise ValueError("lattice_shard_t does not compose with "
                          "loss_impl='pruned' (the banded lattice is already "
@@ -169,7 +173,7 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
                             g, n, L, device=wave.device)))
                     wave = augment_device.device_augment_apply(
                         draws, wave, audio_lens, fspec.sample_rate)
-            feats = featurize(wave)
+            feats = featurize(wave, audio_lens)
             if spec_augment and augmenting:
                 B, T, F = feats.shape
                 draws = batch_draw(generator, B, lambda g, n: augment.spec_augment_draws(
@@ -178,7 +182,8 @@ def make_loss_fn(spec: RNNTSpec, fspec: FeaturizerSpec, precision: str = "bf16",
             feats = feats.to(dtype)
         feat_lens = feature_lens_from_samples(audio_lens, fspec)
         audio, text, state = rnnt_forward(model, feats, batch["targets"],
-                                          training=training, generator=generator)
+                                          training=training, generator=generator,
+                                          feat_lens=feat_lens)
         if new_state is not None:
             new_state.update(state)
         t_lens = encoder_out_len(feat_lens, spec.encoder)

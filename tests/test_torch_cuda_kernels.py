@@ -18,7 +18,11 @@ bit-equal.  K1 and K2 on a vocabulary slice (``v0``) take the same
 tolerances.  K6 and K7 take K3's and K4's tolerances, and on one shard at
 t0 = 0 equal K3 and K4 bit for bit (one sweep).  K2's softmax formed
 against K1's lse sums to 1 within 1e-5 (both kernels round h by one
-device function and sum the same logits).
+device function and sum the same logits).  K1 and K2 with the ReLU joint
+take the tanh cases' tolerances against their plain versions; the exact
+loss through them against the chunked path's within 1e-4 relative (float32
+sums in another order) and its gradients within 2e-2 relative L2 (the
+chunked path's autograd rounds d(loss)/dh to bf16 where K2 rounds dl).
 """
 
 import math
@@ -360,6 +364,56 @@ def test_k5_matches_plain(cuda, B, L, N, width, lo, hi):
     torch.cuda.synchronize()
     assert K5.launches == before + 1
     assert torch.equal(got, gather_windows_plain(x, starts, width))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 19, 7, 64, 48),          # one partial V tile
+    (2, 9, 5, 36, 37),           # H, V % 8 != 0
+    (4, 201, 65, 640, 1025),     # parakeet_rnnt_0.6b's joint and a 16 s row
+])
+def test_k1_k2_relu_match_plain(cuda, shape):
+    """K1 and K2 with act = relu against their plain versions."""
+    B, T, U1, H, V = shape
+    args = _joint_case(shape, cuda, sum(shape) + 3)
+    got = fused_joint_forward(*args, act="relu")
+    want = fused_joint_outputs_plain(*args, act="relu")
+    for x, y in zip(got, want):
+        _close(x, y, atol=2e-3, rtol=1e-3)
+    g = torch.Generator().manual_seed(4)
+    g_blank, g_label = (torch.randn(B, T, U1, generator=g).to(cuda) * 0.3 for _ in range(2))
+    cot = (want[0], g_blank, g_label, -(g_blank + g_label))
+    got = fused_joint_backward(*args, *cot, act="relu")
+    want = fused_joint_bwd_plain(*args, *cot, act="relu")
+    for name, x, y in zip(("denc", "dpred", "dW", "db"), got, want):
+        assert _rel_l2(x, y) < 5e-3, (name, _rel_l2(x, y))
+
+
+def test_relu_joint_loss_matches_chunked(cuda):
+    """The exact loss of a ReLU joint (parakeet_rnnt_0.6b's widths: audio
+    1024 and text 640 projected to 640, 1025 classes) through K1-K4 against
+    the chunked path, loss and every gradient."""
+    from rnnt_tpu_torch.models.joint import Joint, JointSpec
+    from rnnt_tpu_torch.ops.transducer import transducer_loss
+    from rnnt_tpu_torch.ops.transducer_pallas import transducer_loss_pallas
+
+    B, T, U = 4, 60, 16
+    g = torch.Generator().manual_seed(5)
+    joint = Joint(JointSpec(1024, 640, 640, 1025, "relu"), g).to(cuda)
+    audio = torch.randn(B, T, 1024, generator=g).to(torch.bfloat16).to(cuda)
+    text = torch.randn(B, U + 1, 640, generator=g).to(torch.bfloat16).to(cuda)
+    targets = torch.randint(0, 1024, (B, U), generator=g).to(cuda)
+    t_lens = torch.tensor([60, 51, 40, 33], device=cuda)
+    u_lens = torch.tensor([16, 12, 9, 1], device=cuda)
+    results = []
+    for fn, kw in ((transducer_loss_pallas, {}), (transducer_loss, {"chunk_size": 16})):
+        a, t = audio.clone().requires_grad_(), text.clone().requires_grad_()
+        loss = fn(joint, a, t, targets, t_lens, u_lens, 1024, **kw)
+        params = [a, t] + list(joint.parameters())
+        results.append((loss.detach(), torch.autograd.grad(loss, params)))
+    (lk, gk), (lc, gc) = results
+    assert abs(float(lk - lc)) <= 1e-4 * abs(float(lc)), (float(lk), float(lc))
+    for x, y in zip(gk, gc):
+        assert _rel_l2(x.float(), y.float()) < 2e-2
 
 
 def test_wrappers_check_inputs(cuda):

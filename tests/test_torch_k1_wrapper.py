@@ -19,7 +19,7 @@ from rnnt_tpu_torch.ops import kernels
 from rnnt_tpu_torch.ops import transducer_pallas as ttp
 
 _ARGS = ("enc", "pred", "w", "bias", "labels", "h_ws", "lse", "blank_out", "label_out",
-         "B", "T", "U1", "Hp", "V", "Vp", "blank", "v0")
+         "B", "T", "U1", "Hp", "V", "Vp", "blank", "v0", "act")
 
 
 @pytest.fixture
@@ -138,11 +138,11 @@ def test_k1_wrapper_refuses_other_devices():
 
 def test_k1_entry_point_signature():
     """The ctypes signature matches the C entry point in csrc/joint_fwd.cu:
-    9 pointers, B, T, U1, Hp, V, Vp, blank and v0 as ints, the stream."""
-    assert ttp.K1.argtypes == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    9 pointers, B, T, U1, Hp, V, Vp, blank, v0 and act as ints, the stream."""
+    assert ttp.K1.argtypes == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     src = (Path(ttp.__file__).resolve().parents[1] / "csrc" / "joint_fwd.cu").read_text()
     params = re.search(r'extern "C" int rnnt_joint_fwd\(([^)]*)\)', src).group(1).split(",")
     names = [p.split()[-1].lstrip("*") for p in params]
     assert names == list(_ARGS) + ["stream"]
     kinds = ["int" if p.split()[0] == "int" else "ptr" for p in params]
-    assert kinds == ["ptr"] * 9 + ["int"] * 8 + ["ptr"]
+    assert kinds == ["ptr"] * 9 + ["int"] * 9 + ["ptr"]

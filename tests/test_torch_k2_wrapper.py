@@ -15,7 +15,7 @@ from rnnt_tpu_torch.ops import transducer_pallas as ttp
 
 _ARGS = ("enc", "pred", "w", "b", "labels", "lse", "g_blank", "g_label", "g_lse",
          "h_ws", "dl_ws", "denc", "dpred", "dw", "db", "B", "T", "U1", "Hp", "V",
-         "Vp", "blank", "v0", "grad_clamp")
+         "Vp", "blank", "v0", "grad_clamp", "act")
 
 
 @pytest.fixture
@@ -119,7 +119,8 @@ def test_k2_wrapper_refuses_other_devices():
 
 def test_k2_entry_point_signature():
     """The ctypes signature matches the C entry point: 15 pointers, B, T,
-    U1, Hp, V, Vp, blank and v0 as ints, the clamp as a float, the stream."""
+    U1, Hp, V, Vp, blank and v0 as ints, the clamp as a float, the
+    activation as an int, the stream."""
     assert ttp.K2.argtypes == [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
-    assert len(_ARGS) == 24
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    assert len(_ARGS) == 25

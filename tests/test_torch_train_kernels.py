@@ -232,3 +232,29 @@ def test_chip_smoke_reference_joint_is_k2_formula():
         np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6)
     for x, y in zip(*grads):
         np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "relu"])
+def test_chip_smoke_reference_leaves_run_the_exact_loss(activation):
+    """Under chip_smoke.py's ``reference_leaves`` the exact loss runs its
+    joint through ``joint_outputs_reference`` (which takes the joint's
+    activation and refuses all but tanh) and gives the loss the plain path
+    gives on the CPU, bf16 operands (both round the sum and h to bf16)."""
+    import chip_smoke
+    from rnnt_tpu_torch.models.joint import Joint, JointSpec
+
+    g = torch.Generator().manual_seed(7)
+    joint = Joint(JointSpec(16, 12, 24, 10, activation), g)
+    audio = torch.randn(2, 6, 16, generator=g).to(torch.bfloat16)
+    text = torch.randn(2, 4, 12, generator=g).to(torch.bfloat16)
+    targets = torch.tensor([[1, 2, 3], [4, 5, 0]])
+    t_lens, u_lens = torch.tensor([6, 4]), torch.tensor([3, 2])
+    want = ttp.transducer_loss_pallas(joint, audio, text, targets, t_lens, u_lens, 9)
+    with chip_smoke.reference_leaves([]):
+        if activation != "tanh":
+            with pytest.raises(ValueError, match="tanh only"):
+                ttp.transducer_loss_pallas(joint, audio, text, targets, t_lens, u_lens, 9)
+            return
+        got = ttp.transducer_loss_pallas(joint, audio, text, targets, t_lens, u_lens, 9)
+    # float64 alpha recursion against the float32 one
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
