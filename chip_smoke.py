@@ -54,6 +54,14 @@ Run ``python3 chip_smoke.py`` (no arguments) from the repository root:
    full-width batch from a fixed generator, through K5 and with K5's plain
    version in its place: identical audio and lens, lens in (0, L], zero
    past the lens, finite; ms per call and K5 launches per call (4);
+3c. optimizer phase: the train step's norm pass (``sq_norms``) and AdamW
+   pass (``adamw_update``) over base_convjs's and parakeet_rnnt_0.6b's
+   full leaf sets (random gradients, the clip engaged), as the step calls
+   them, against their plain per-leaf loops (OPTIM_TOL); their launches
+   and every device kernel of one round, device ms (torch.profiler)
+   beside the 32 B-a-parameter bound, the plain loops' ms and, as a
+   yardstick the port never calls, ``torch.optim.AdamW(fused=True)``'s
+   step (no clip);
 4. path phase (slice 1): the full-width ``base_convjs`` model (random
    weights from a seed, ``training.loss_impl=auto``, synthetic 10 s
    utterances, an in-code 1023-piece vocabulary) through
@@ -593,29 +601,44 @@ def kernel_name(name: str) -> str:
 SESSIONS = 6
 
 
-def device_ms_by_kernel(fn, reps: int = 10) -> dict[str, float]:
-    """{kernel name: mean device ms per call of ``fn``} (torch.profiler),
-    after a warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+def device_events(fn, reps: int = 10) -> list:
+    """The device events of ``reps`` calls of ``fn`` in one torch.profiler
+    session, after a warm-up step inside the session whose events are
+    dropped (CUPTI can lose a session's first kernels), retried when a
+    session reports no device events at all."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(SESSIONS):  # a session now and then reports no device events
         if attempt:
             time.sleep(1.0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got: list = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.append(list(p.events()))) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            name = kernel_name(e.name)
-            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
-        if by_name:
-            return {k: v / reps / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
+            prof.step()
+        events = [e for e in (got[0] if got else [])
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
     raise AssertionError(f"the profiler saw no device activity in {SESSIONS} sessions")
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict[str, float]:
+    """{kernel name: mean device ms per call of ``fn``} (torch.profiler),
+    after a warm-up call."""
+    by_name: dict[str, float] = {}
+    for e in device_events(fn, reps):
+        name = kernel_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+    return {k: v / reps / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
 def k2_case(dims, device):
@@ -2527,6 +2550,208 @@ def train_phase(workdir: Path, device, kernels, config="base_convjs",
                 overrides=list(overrides), vocab=vocab, config=config)
 
 
+# ---------------------- the train step's optimizer ----------------------
+
+# p, mu and nu after the kernels against the plain loops: float32 in the same
+# order, but nvcc contracts the moments, the decay and the step into FMAs
+# (tests/test_torch_cuda_multi_tensor.py); the norms: float32 sums in another
+# order.  p within 2 ulps (the step's last rounding, contracted or not) plus
+# STEP_RTOL of the step's size without cancellation (lr times the sum of
+# its terms' magnitudes; where mu's two terms cancel, their rounding is
+# relative to the terms and not to the step), so that a step left out or
+# wrong in any term fails.
+OPTIM_TOL = dict(atol_scale=1e-6, rtol=1e-5)
+STEP_RTOL = 1e-5
+NORM_RTOL = 1e-5
+OPTIM_CONFIGS = ("base_convjs", "parakeet_rnnt_0.6b")
+
+
+def check_step(name: str, got, want, before, size) -> float:
+    """Raise unless |got - want| <= 2 eps |want| + STEP_RTOL size everywhere
+    (``before`` the parameters ahead of the step, ``size`` its size without
+    cancellation); return the share of elements whose step alone would
+    break that limit: where a missing step shows."""
+    eps = torch.finfo(torch.float32).eps
+    err = (got - want).abs()
+    lim = 2 * eps * want.abs() + STEP_RTOL * size
+    bad = err > lim
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        i = int(torch.argmax(err - lim))
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {bad.numel()} values out of tolerance "
+            f"(worst: err {float(err.flatten()[i]):.3e}, limit {float(lim.flatten()[i]):.3e})")
+    return float(((want - before).abs() > lim).float().mean())
+
+
+def optimizer_phase(device, configs=OPTIM_CONFIGS, reps=10) -> dict:
+    """The two multi-tensor passes at each configuration's full leaf set:
+    checked against the plain loops at two points of the schedule,
+    launches and device kernels of one round, device and events ms beside
+    the bytes bound, plain ms, host ms of a round and the foreach-norm and
+    fused-AdamW yardsticks."""
+    import copy
+    import dataclasses
+
+    from rnnt_tpu_torch.config.config import (
+        apply_overrides, build_model_spec, load_config, resolve_config)
+    from rnnt_tpu_torch.models.rnnt import RNNT
+    from rnnt_tpu_torch.ops import multi_tensor as mt
+    from rnnt_tpu_torch.parallel.mesh import squared_norms
+    from rnnt_tpu_torch.train.optim import make_optimizer
+
+    out = {}
+    for config in configs:
+        cfg = apply_overrides(load_config(resolve_config(config)),
+                              ["training.loss_impl=auto", "training.accumulate_steps=1"])
+        with torch.device("meta"):
+            model = RNNT(build_model_spec(cfg), torch.Generator())
+        names = [n for n, _ in model.named_parameters()]
+        shapes = [tuple(p.shape) for _, p in model.named_parameters()]
+        del model
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = {n: torch.randn(s, generator=gen, device=device) for n, s in zip(names, shapes)}
+        grads = {n: torch.randn(s, generator=gen, device=device) for n, s in zip(names, shapes)}
+        g_list = [grads[n] for n in names]
+        n_param = sum(p.numel() for p in params.values())
+        opt, _ = make_optimizer(cfg.training, cfg.training.lr_schedule.total_steps)
+        peak = max(cfg.training.lr_schedule.warmup_steps - 1, 0)  # lr = base_lr there
+        subs = sorted({n.split(".")[0] for n in names})
+        plain_sq = mt.sq_norms_plain(g_list, [subs.index(n.split(".")[0]) for n in names],
+                                     len(subs))
+        plain_total = torch.sqrt(plain_sq.sum())
+        # The moments at the clipped gradient's scale, so that the gradient's
+        # terms are a visible share of mu and nu.
+        scale = opt.max_norm / float(plain_total)
+        state = opt.init(params)
+        for n in names:
+            state.mu[n].normal_(generator=gen).mul_(scale)
+            state.nu[n].normal_(generator=gen).mul_(scale).square_()
+
+        def round_(st, o=opt):
+            # As make_train_step: the squared norms once, their total to the clip.
+            sq = squared_norms(grads, {}, None)
+            total = torch.sqrt(sum(sq.values()))
+            return o.update(params, grads, st, norm=(total, None)), total
+
+        # Check one round against the plain loops on copies at two points:
+        # the schedule's peak (the warmup's last count), and the first update
+        # (bias corrections 1 - b1 and 1 - b2) at the peak's lr.  At warmup's
+        # first counts lr is base_lr / warmup_steps, and p would move below
+        # its tolerance.
+        first = copy.copy(opt)
+        first.schedule = lambda count: opt.schedule(peak)
+        errs, moved = {}, {}
+        for point, o, count in (("peak", opt, peak), ("first", first, 0)):
+            state = dataclasses.replace(state, count=count)
+            before = {n: t.clone() for n, t in params.items()}
+            ref_p = {n: t.clone() for n, t in params.items()}
+            m0 = {n: t.clone() for n, t in state.mu.items()}
+            ref_m = {n: t.clone() for n, t in state.mu.items()}
+            ref_v = {n: t.clone() for n, t in state.nu.items()}
+            for k in (mt.SQ_NORMS, mt.ADAMW_UPDATE):
+                k.launches = 0
+            state, total = round_(state, o)
+            launches = {k.name: k.launches for k in (mt.SQ_NORMS, mt.ADAMW_UPDATE)}
+            sync(device)
+            norm_err = abs(float(total) - float(plain_total)) / float(plain_total)
+            if norm_err > NORM_RTOL:
+                raise AssertionError(f"{config}: global norm {float(total)!r} against plain "
+                                     f"{float(plain_total)!r}")
+            if not float(total) >= opt.max_norm:
+                raise AssertionError(f"{config}: the clip did not engage (norm {float(total)})")
+            h = o.hyper(count)
+            mt.adamw_update_plain([ref_p[n] for n in names], g_list,
+                                  [ref_m[n] for n in names], [ref_v[n] for n in names],
+                                  total, h)
+            sync(device)
+            worst = {}
+            for what, got, want in (("mu", state.mu, ref_m), ("nu", state.nu, ref_v)):
+                worst[what] = max(
+                    check_close(f"{config} {point} {what} {n}", got[n], want[n],
+                                OPTIM_TOL["atol_scale"] * float(want[n].abs().max()),
+                                OPTIM_TOL["rtol"]) for n in names)
+            worst["p"] = max(float((params[n] - ref_p[n]).abs().max()) for n in names)
+            shares = []
+            for n in names:
+                gc = grads[n].abs() * (h.max_norm / float(total))  # clipped
+                size = h.lr * ((h.b1 * m0[n].abs() + (1 - h.b1) * gc) / h.bc1
+                               / (torch.sqrt(ref_v[n] / h.bc2) + h.eps)
+                               + h.weight_decay * before[n].abs())
+                shares.append(check_step(f"{config} {point} p {n}", params[n], ref_p[n],
+                                         before[n], size))
+            errs[point] = worst
+            moved[point] = dict(lr=h.lr, bc1=h.bc1, bc2=h.bc2, p_step_visible=sum(
+                sh * params[n].numel() for sh, n in zip(shares, names)) / n_param)
+            del before, ref_p, m0, ref_m, ref_v
+        # Every device kernel of one round: the two passes' and the few
+        # scalar ops around them, none a leaf.
+        kernels_a_round: dict[str, int] = {}
+        for e in device_events(lambda: round_(state), reps=1):
+            kn = kernel_name(e.name)
+            kernels_a_round[kn] = kernels_a_round.get(kn, 0) + 1
+        n_kernels = sum(kernels_a_round.values())
+        if n_kernels >= len(names):
+            raise AssertionError(f"{config}: {n_kernels} device kernels a round over "
+                                 f"{len(names)} leaves: {kernels_a_round}")
+        groups = [0] * len(names)
+        norm_fn = lambda: mt.sq_norms(g_list, groups, 1)  # noqa: E731
+        upd_fn = lambda: opt.update(params, grads, state, norm=(total, None))  # noqa: E731
+        norm_dev = device_ms_by_kernel(norm_fn, reps)
+        upd_dev = device_ms_by_kernel(upd_fn, reps)
+        sync(device)
+        t = time.perf_counter()
+        for _ in range(reps):
+            round_(state)
+        host_ms = (time.perf_counter() - t) / reps * 1e3
+        sync(device)
+        round_ms = cuda_ms(lambda: round_(state), reps)
+        plain_norm_ms = cuda_ms(lambda: mt.sq_norms_plain(g_list, groups, 1), 3, warmup=1)
+        ps, ms_, vs = ([t for t in d.values()] for d in (params, state.mu, state.nu))
+        plain_upd_ms = cuda_ms(lambda: mt.adamw_update_plain(ps, g_list, ms_, vs, total, h),
+                               3, warmup=1)
+        # The yardsticks: the global norm as torch.nn.utils.clip_grad_norm_
+        # takes it (foreach norms, one group), and PyTorch's fused AdamW (no
+        # clip) on copies.
+        library_norm_ms = cuda_ms(lambda: torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(g_list))), reps)
+        lib_params = [torch.nn.Parameter(t.clone()) for t in ps]
+        for lp, g in zip(lib_params, g_list):
+            lp.grad = g
+        lib = torch.optim.AdamW(lib_params, lr=h.lr, betas=(opt.b1, opt.b2), eps=opt.eps,
+                                weight_decay=opt.weight_decay, fused=True)
+        library_ms = cuda_ms(lib.step, reps)
+        del lib, lib_params
+        norm_bound = 4 * n_param / PEAK_BYTES * 1e3
+        upd_bound = 28 * n_param / PEAK_BYTES * 1e3
+        res = dict(leaves=len(names), parameters=n_param, launches_a_round=launches,
+                   device_kernels_a_round=kernels_a_round, clip_norm=float(total),
+                   norm_rel_err=norm_err, max_abs_err=errs, checked_at=moved,
+                   sq_norms=dict(device_ms=sum(norm_dev.values()), by_kernel=norm_dev,
+                                 bound_ms=norm_bound, plain_ms=plain_norm_ms,
+                                 library_ms=library_norm_ms),
+                   adamw_update=dict(device_ms=sum(upd_dev.values()), by_kernel=upd_dev,
+                                     bound_ms=upd_bound, plain_ms=plain_upd_ms,
+                                     library_ms=library_ms),
+                   round_events_ms=round_ms, round_host_ms=host_ms,
+                   bound_ms=norm_bound + upd_bound)
+        res["roofline_pct"] = 100.0 * res["bound_ms"] / (res["sq_norms"]["device_ms"]
+                                                         + res["adamw_update"]["device_ms"])
+        res["adamw_update"]["roofline_pct"] = 100.0 * upd_bound / res["adamw_update"]["device_ms"]
+        log(f"optimizer {config}: {len(names)} leaves, {n_param} parameters; launches a "
+            f"round {launches}, device kernels a round {n_kernels} {kernels_a_round}; "
+            f"norm device {res['sq_norms']['device_ms']:.4f} ms (bound {norm_bound:.4f}, "
+            f"plain {plain_norm_ms:.3f}, foreach {library_norm_ms:.4f}), update device {res['adamw_update']['device_ms']:.4f} "
+            f"ms (bound {upd_bound:.4f}, {res['adamw_update']['roofline_pct']:.1f} %, plain "
+            f"{plain_upd_ms:.3f}, fused AdamW {library_ms:.4f}); both "
+            f"{res['roofline_pct']:.1f} % of {res['bound_ms']:.4f} ms; round events "
+            f"{round_ms:.4f} ms, host {host_ms:.3f} ms; errors {errs}, norm {norm_err:.2e}; "
+            f"checked at {moved}")
+        out[config] = res
+        del params, grads, state, g_list, ps, ms_, vs
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------- decode: beam and rescoring -------------------------
 
 # The rescoring NLLs (K3 on the B x C candidate lattices) against the plain
@@ -2836,7 +3061,8 @@ def lstm_phase(workdir: Path, device, kernels, config=LSTM_CONFIG,
     train_s = time.perf_counter() - t0
     run_dir = _latest_run(exp, load_config(resolve_config(config)).model_name)
     rows = _read_steps(run_dir)
-    lattice = {"joint_fwd", "joint_bwd", "alpha_fwd", "beta_bwd"}
+    # K1-K4 and the optimizer's two passes launch in every step; K5-K7 never.
+    lattice = {"joint_fwd", "joint_bwd", "alpha_fwd", "beta_bwd", "sq_norms", "adamw_update"}
     for st in rows:
         log(f"lstm/train step {st['step']}: loss {st['loss']:.4f}, grad norm "
             f"{st['grad_norm']:.4f}, {st['seconds']:.4f} s, {st['audio_s_per_s']:.2f} "
@@ -2847,8 +3073,9 @@ def lstm_phase(workdir: Path, device, kernels, config=LSTM_CONFIG,
             bad = {k: n for k, n in st["launches"].items()
                    if (k in lattice) != bool(n)}
             if bad:
-                raise AssertionError(f"lstm step {st['step']}: K1-K4 must launch and "
-                                     f"K5-K7 must not, got {st['launches']}")
+                raise AssertionError(f"lstm step {st['step']}: K1-K4 and the optimizer's "
+                                     f"passes must launch and K5-K7 must not, got "
+                                     f"{st['launches']}")
     if len(rows) != steps:
         raise AssertionError(f"lstm: {len(rows)} steps logged, expected {steps}")
     ckpt = run_dir / f"checkpoint_step_{steps}"
@@ -3791,6 +4018,7 @@ def grad_phase(device, kernels, train: dict) -> dict:
     from rnnt_tpu_torch.models.encoder import encoder_out_len
     from rnnt_tpu_torch.models.rnnt import rnnt_forward
     from rnnt_tpu_torch.ops import transducer_pruned as tpr
+    from rnnt_tpu_torch.ops.multi_tensor import global_norm
     from rnnt_tpu_torch.ops.stft import make_featurizer
     from rnnt_tpu_torch.ops.transducer import joint_lattice_log_probs
     from rnnt_tpu_torch.ops.transducer_pallas import transducer_loss_pallas
@@ -3814,7 +4042,7 @@ def grad_phase(device, kernels, train: dict) -> dict:
     def param_errors(what, grads_k, grads_p):
         """[(relative L2 error, name)] of each parameter with a reference
         gradient, the norm floored at GRAD_FLOOR x the global norm."""
-        floor = GRAD_FLOOR * float(step.global_norm([g for g in grads_p if g is not None]))
+        floor = GRAD_FLOOR * float(global_norm([g for g in grads_p if g is not None]))
         errs = []
         for n, gk, gp in zip(names, grads_k, grads_p):
             if gp is None or float(gp.float().norm()) == 0.0:
@@ -4122,6 +4350,7 @@ def main() -> None:
     from rnnt_tpu_torch.data.dataset import synthetic_piece_table
     from rnnt_tpu_torch.ops.kernels import build_all
     from rnnt_tpu_torch.ops.lattice_pallas import K3, K4, K6, K7
+    from rnnt_tpu_torch.ops.multi_tensor import ADAMW_UPDATE, SQ_NORMS
     from rnnt_tpu_torch.ops.transducer_pallas import K1, K2
     from rnnt_tpu_torch.ops.window_gather import K5
 
@@ -4137,9 +4366,10 @@ def main() -> None:
 
     t0 = time.time()
     kernels = [K1, K2, K3, K4, K5]
-    secs = build_all(kernels + [K6, K7])  # once, before any rank starts
-    log(f"built {[k.name for k in kernels + [K6, K7]]} in {secs:.1f} s")
-    for k in kernels + [K6, K7]:
+    optim_kernels = [SQ_NORMS, ADAMW_UPDATE]
+    secs = build_all(kernels + [K6, K7] + optim_kernels)  # once, before any rank starts
+    log(f"built {[k.name for k in kernels + [K6, K7] + optim_kernels]} in {secs:.1f} s")
+    for k in kernels + [K6, K7] + optim_kernels:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {k.name}: {line.strip()}")
@@ -4176,6 +4406,7 @@ def main() -> None:
         measured["K1"]["other_tree"] = other
     measured["K5"] = k5_phase(device, L)
     augment = augment_phase(device, K5, L)
+    optim = optimizer_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
         path = path_phase(Path(tmp), device, [K1, K3])
         if args.profile is not None:
@@ -4186,7 +4417,7 @@ def main() -> None:
         decode = decode_phase(Path(tmp), device, kernels + [K6, K7],
                               measured["K3"]["lse_step_ns"])
         decode["lstm"] = lstm_phase(Path(tmp), device, kernels + [K6, K7])
-        train = train_phase(Path(tmp), device, kernels)
+        train = train_phase(Path(tmp), device, kernels + optim_kernels)
         grad_phase(device, kernels, train)
         tools = tools_phase(Path(tmp), device, kernels + [K6, K7])
         ranks = multi_rank_phase(Path(tmp), device, train)
@@ -4287,6 +4518,30 @@ def main() -> None:
                                                           f"this_{plain}")}
                                      for m in c["other_tree"]] for tag, c in chain.items()}}
                if "other_tree" in ev else {})))
+    for k in optim_kernels:
+        per = {c: r[k.name] | dict(launches_a_round=r["launches_a_round"][k.name],
+                                   leaves=r["leaves"], parameters=r["parameters"])
+               for c, r in optim.items()}
+        entries.append(dict(
+            name=k.name, route="cuda", source=f"rnnt_tpu_torch/csrc/{k.name}.cu",
+            replaces=k.replaces, launches=train["launches"][k.name],
+            launches_per_step={impl: c[k.name] for impl, c in train["per_step"].items()},
+            max_abs_err={c: r["max_abs_err"] for c, r in optim.items()},
+            norm_rel_err={c: r["norm_rel_err"] for c, r in optim.items()},
+            checked_at={c: r["checked_at"] for c, r in optim.items()},
+            ms=per["parakeet_rnnt_0.6b"]["device_ms"],
+            plain_ms=per["parakeet_rnnt_0.6b"]["plain_ms"],
+            bound_ms=per["parakeet_rnnt_0.6b"]["bound_ms"], bound_by="bytes",
+            library_ms=per["parakeet_rnnt_0.6b"].get("library_ms"),
+            library_note=("torch.optim.AdamW(fused=True).step, no clip; the port never calls it"
+                          if k is ADAMW_UPDATE
+                          else "torch._foreach_norm, stacked and normed (clip_grad_norm_'s "
+                               "global norm), one group; the port never calls it"),
+            shape="every leaf of each configuration (ms, plain_ms, bound_ms: parakeet_rnnt_0.6b)",
+            cases=per, device_kernels_a_round={c: r["device_kernels_a_round"]
+                                               for c, r in optim.items()},
+            round_host_ms={c: r["round_host_ms"] for c, r in optim.items()},
+            round_events_ms={c: r["round_events_ms"] for c, r in optim.items()}))
     multi = {key: dict(gaps=r["gaps"], seconds=r["seconds"], eval_launches=r["eval_launches"],
                        seconds_one_rank=r["seconds_one_rank"],
                        steps=[{k: s[k] for k in ("step", "loss", "grad_norm", "seconds",

@@ -54,6 +54,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from rnnt_tpu_torch.ops.multi_tensor import sq_norms
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -306,25 +308,30 @@ def replica_digests(model, mesh: Mesh) -> list[int]:
     return [int(x) for x in parts]
 
 
+def norm_groups(names, layout: dict) -> tuple[list[str], list[int]]:
+    """(the top-level submodules, sorted; each name's group): its
+    submodule's index, plus the number of submodules when it is sharded
+    (in ``layout``)."""
+    subs = sorted({n.split(".")[0] for n in names})
+    slot = {s: i for i, s in enumerate(subs)}
+    return subs, [slot[n.split(".")[0]] + (len(subs) if n in layout else 0) for n in names]
+
+
 def squared_norms(grads: dict, layout: dict, mesh: Mesh | None) -> dict[str, torch.Tensor]:
     """{top-level submodule: the sum of squares of its gradients}, float32,
     counting each sharded gradient once: a rank's squares of its shards are
     summed over the model group (one all-reduce), the replicated ones are
-    taken as they are."""
-    rep: dict[str, torch.Tensor] = {}
-    sh: dict[str, torch.Tensor] = {}
-    for name, g in grads.items():
-        sub = name.split(".")[0]
-        into = sh if name in layout else rep
-        sq = torch.sum(g.float() ** 2)
-        into[sub] = into[sub] + sq if sub in into else sq
-    if sh and mesh is not None and mesh.model > 1:
-        keys = sorted(sh)
-        total = all_reduce_sum(torch.stack([sh[k] for k in keys]), mesh.model_group)
-        sh = dict(zip(keys, total))
-    subs = sorted(set(rep) | set(sh))
-    zero = torch.zeros((), dtype=torch.float32)
-    return {k: rep.get(k, zero) + sh.get(k, zero) for k in subs}
+    taken as they are.  One ``sq_norms`` pass over every leaf, grouped by
+    ``norm_groups``."""
+    if not grads:
+        return {}
+    subs, groups = norm_groups(grads, layout)
+    S = len(subs)
+    sq = sq_norms(list(grads.values()), groups, 2 * S)
+    rep, sh = sq[:S], sq[S:]
+    if any(n in layout for n in grads) and mesh is not None and mesh.model > 1:
+        sh = all_reduce_sum(sh.contiguous(), mesh.model_group)
+    return dict(zip(subs, rep + sh))
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -16,6 +16,10 @@ The state (``OptState``) holds float32 ``mu`` and ``nu`` by parameter name
 from the optax layout.  On a tensor-parallel mesh the parameters are this
 rank's shards, so are the moments, and the clip takes its global norm from
 the caller (``norm``), which counts each shard once over the model group.
+
+The update runs over every leaf at once (``ops/multi_tensor.py``
+``adamw_update``): on CUDA as one kernel a table of leaves, the norm read
+on the card; on the CPU as the per-leaf loop it always was.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from rnnt_tpu_torch.ops.multi_tensor import AdamWHyper, adamw_update, global_norm
 
 
 def warmup_cosine_schedule(base_lr: float, warmup_steps: int,
@@ -79,40 +85,47 @@ class AdamWClip:
                norm=None) -> OptState:
         """Apply one call's gradients to ``params`` in place; return the new
         state (the tensors of ``state`` are updated in place too).
-        ``norm(grads)`` is the clip's global norm (by default the norm of
-        the given gradients)."""
+        ``norm = (value, fn)`` gives the clip's global norm: ``value`` (a
+        0-d tensor) is that of ``grads``, taken when they are applied as
+        they are; ``fn(gs)`` computes it for the running mean that MultiSteps
+        applies.  Where either is None, the norm of every entry is
+        computed."""
+        value, fn = (None, None) if norm is None else norm
         if self.k <= 1:
-            return self._apply(params, grads, state, norm)
+            return self._apply(params, grads, state,
+                               self._norm(grads, fn) if value is None else value)
         n = state.mini_step
         for name, g in grads.items():
             a = state.acc[name]
             a.add_((g.float() - a) / (n + 1))
         if n < self.k - 1:
             return OptState(state.count, state.mu, state.nu, n + 1, state.acc)
-        new = self._apply(params, state.acc, state, norm)
+        new = self._apply(params, state.acc, state, self._norm(state.acc, fn))
         for a in state.acc.values():
             a.zero_()
         return OptState(new.count, new.mu, new.nu, 0, state.acc)
 
-    def _apply(self, params: dict, grads: dict, state: OptState, norm=None) -> OptState:
-        g_norm = (norm(grads) if norm is not None
-                  else torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values())))
-        clip = g_norm >= self.max_norm
-        count = state.count + 1
+    def hyper(self, count: int) -> AdamWHyper:
+        """The scalars of the update after ``count`` real ones: the
+        schedule's learning rate there and the bias corrections of
+        ``count + 1``."""
         f32 = np.float32
-        bc1 = float(f32(1) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1) - f32(self.b2) ** f32(count))
-        lr = self.schedule(state.count)
-        for name, p in params.items():
-            g = grads[name].float()
-            g = torch.where(clip, g / g_norm * self.max_norm, g)
-            mu, nu = state.mu[name], state.nu[name]
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            upd = upd + self.weight_decay * p.float()
-            p.add_((-lr * upd).to(p.dtype))
-        return OptState(count, state.mu, state.nu, state.mini_step, state.acc)
+        return AdamWHyper(lr=self.schedule(count),
+                          bc1=float(f32(1) - f32(self.b1) ** f32(count + 1)),
+                          bc2=float(f32(1) - f32(self.b2) ** f32(count + 1)),
+                          b1=self.b1, b2=self.b2, eps=self.eps,
+                          weight_decay=self.weight_decay, max_norm=self.max_norm)
+
+    @staticmethod
+    def _norm(grads: dict, fn) -> torch.Tensor:
+        return fn(grads) if fn is not None else global_norm(grads.values())
+
+    def _apply(self, params: dict, grads: dict, state: OptState,
+               g_norm: torch.Tensor) -> OptState:
+        adamw_update(params.values(), [grads[n] for n in params],
+                     [state.mu[n] for n in params], [state.nu[n] for n in params], g_norm,
+                     self.hyper(state.count))
+        return OptState(state.count + 1, state.mu, state.nu, state.mini_step, state.acc)
 
 
 def make_optimizer(tc, total_steps: int):

@@ -25,8 +25,9 @@ spans:
   ``models/rnnt.py``; and ``loss``, the transducer loss), ``backward``
   (the gradients and their float / zero fill; autograd's device thread
   launches the backward's kernels while this span waits), ``grad_norm``
-  (the reported norms) and ``optimizer`` (the clip's norm, AdamW and the
-  batch-norm statistics);
+  (the reported norms, whose total the clip takes) and ``optimizer``
+  (AdamW with the clip, the batch-norm statistics; under MultiSteps the
+  running mean and its norm);
 * ``launch <kernel>`` (``ops/kernels.py``): one hand-written kernel's
   launch;
 * ``step N``, ``data`` and ``bookkeeping`` (``train/loop.py``): a step of

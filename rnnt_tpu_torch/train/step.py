@@ -40,8 +40,9 @@ gradient the same on the model ranks, up to the order of float sums
 same bits on two ranks), and every sharded one its rank's own.  The replicated
 gradients are averaged over the world, which keeps the replicas bit-equal
 where GSPMD holds one logical array; the sharded ones over the data group.
-The global and per-submodel norms (and the clip's) count each sharded
-gradient once (``parallel/mesh.squared_norms``).  On several data ranks,
+The global and per-submodel norms count each sharded gradient once
+(``parallel/mesh.squared_norms``, one pass a step); the clip takes the
+global one.  On several data ranks,
 batch norms take their statistics over the data group
 (``ops/norm.batch_stats_over``).
 """
@@ -216,12 +217,6 @@ class TrainState:
     step: int = 0
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, float32 (optax's
-    ``global_norm``)."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
-
-
 def sync_grads(grads: list, scale: float, group=None) -> list:
     """The gradients summed over ``group`` (every rank when None) and
     scaled, as one flat all-reduce."""
@@ -298,9 +293,12 @@ def make_train_step(spec: RNNTSpec, fspec: FeaturizerSpec, optimizer,
                 for sub in SUBMODELS:
                     metrics[f"grad_norm/{sub}"] = torch.sqrt(sq.get(sub, torch.zeros(())))
             with span("optimizer"):
+                # The clip takes the grad_norm span's total; a MultiSteps
+                # update norms the running mean it applies.
                 opt_state = optimizer.update(
                     dict(zip(names, params)), named, state.opt_state,
-                    norm=lambda gs: torch.sqrt(sum(squared_norms(gs, layout, mesh).values())))
+                    norm=(metrics["grad_norm"],
+                          lambda gs: torch.sqrt(sum(squared_norms(gs, layout, mesh).values()))))
                 model.commit_norm_state(new_norm)
             return TrainState(model, opt_state, state.step + 1), metrics
 

@@ -344,7 +344,8 @@ def test_cli_train_writes_checkpoint_cli_eval_reads(vocab, tmp_path, capsys):
     assert all(set(x) == {"launches/joint_fwd", "launches/joint_bwd",
                           "launches/alpha_fwd", "launches/beta_bwd",
                           "launches/window_gather", "launches/alpha_chain",
-                          "launches/beta_chain"}
+                          "launches/beta_chain", "launches/sq_norms",
+                          "launches/adamw_update"}
                and not any(x.values()) for x in launches)
     # Each step logs its convs run by phases: none in this run's float32.
     assert [r["conv_folds"] for r in rows if "loss/train" in r] == [0, 0, 0]
